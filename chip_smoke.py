@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's batched BFS plane once on one NVIDIA H100 and check it.
+"""Drive the port's planes once on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ kernels from `dgraph_tpu_torch/csrc/` into `build/dgraph_tpu_torch/`.
 Phases, each of which fails the run:
 
 1. card: name and power limit (nvidia-smi);
-2. build: nvcc of every kernel source, timed;
+2. build: one nvcc per kernel source, all started together, timed;
 3. kernels against their plain PyTorch versions on the card, bit-exact,
    over W in {1, 5, 128, 768}, degrees {1, 2, 3, 4, 6}, a hub row of
    degree > 2^20 and padding indices at the dummy row N;
@@ -27,9 +27,32 @@ Phases, each of which fails the run:
 7. where a batch's device time goes: torch.profiler over PIPE batches,
    self device time by kernel name and the device's idle share.
 
-Prints the figures on earlier lines, then one JSON line of kernels, the
-card's line, and last `{"ok": true, "device": {...}}`. Exits non-zero,
-printing no result, without a card or without the rest of the repo.
+The vector search plane (similar_to), at bench_vectors.py's accelerator
+regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
+
+8. score_dot and score_int8 against their plain versions on the card,
+   element by element within the reordering bound, over b {1, 3, 256},
+   d {16, 100, 128}, n {1, 777, 65,536, 1,000,064} and int8 list slices;
+9. the exact and two-stage tiers of `knn.topk_device` over a
+   device-resident block: sustained QPS with score_dot's launches set to
+   0 just before and asserted after (one per call); the exact top-10
+   against the same call with the plain version and, for 16 queries,
+   the float64 oracle (rounding flips printed with their gap); two-stage
+   recall@10 >= 0.99; `score_dot` alone beside its plain version,
+   torch.matmul and its bound;
+10. the quantized IVF tier: `ivf.build` (assignment on the card), then
+   `ivf.search` at the calibrated nprobe and every frontier budget, each
+   search's score_int8 launches asserted equal to its distinct probed
+   lists; the answer against the plain version, recall@10 >= 0.95;
+   score_int8 over one batch's launches beside its plain version and
+   bound;
+11. torch.profiler over one exact and one quantized batch;
+12. the 100k regime, beside BENCH_VECTORS.json's record (informational).
+
+Each figure is printed beside the card's name and power limit. Then one
+JSON line of kernels, the card's line, and last `{"ok": true, "device":
+{...}}`. Exits non-zero, printing no result, without a card or without
+the rest of the repo.
 """
 
 from __future__ import annotations
@@ -49,10 +72,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # since another numpy could draw another graph
 TPU_LEVEL_SUMS = [1009222, 3337375, 7608784]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FP32_FLOPS = 67e12                 # H100 SXM data sheet, outside tensor cores
 RUNS = 4                           # timed groups of PIPE batches
 REACH_QUERIES = 48
 KERNEL_REPS = 10
 PLAIN_REPS = 2
+# the vector plane's regime (bench_vectors.py's on an accelerator)
+VEC_N = 1_000_000
+VEC_D = 128
+VEC_BATCH = 256
+VEC_K = 10
+VEC_METRIC = "cosine"
+ORACLE_QUERIES = 16
+SMALL_N = 100_000                  # bench_vectors.py always runs it
+# corpus rows of the score kernels' checks; 1,000,064 is the 1M corpus
+# padded to the two-stage bucket
+SCORE_CHECK_ROWS = (1, 777, 65_536, 1_000_064)
+# BENCH_VECTORS.json's 100k regime (a CPU run of the JAX package, same
+# generator seeds): informational only
+BENCH_VECTORS_100K = {"nlist": 256, "nprobe": 4, "sampleRecall": 1.0,
+                      "two_stage_recall_at_k": 1.0}
 
 
 def log(msg: str) -> None:
@@ -142,60 +181,66 @@ def level_bound_ms(f, recs) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def profile_batches(digest, mats, pipe: int, card: str) -> None:
-    """Self device time by kernel name over `pipe` batches in flight,
-    per batch, and the device's idle share of the window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_window(run, batches: int, unit: str, card: str) -> None:
+    """Self device time by kernel name over one call of `run`, which
+    answers `batches` batches, per batch, and the device's idle share of
+    the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    from dgraph_tpu_torch.bench import bfs
-
+    # one traced warm-up step first: a later profiler session in the
+    # same process loses the first kernels it traces
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        bfs.run(digest, mats, pipe)
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     # device-side events only (kernels, memsets, copies): an operator's
-    # row repeats the time of the kernels it launched
+    # row repeats the time of the kernels it launched, and the step's
+    # own row spans the whole step
     rows = [(e.key, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+            for e in traced[-1]
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(ms for _, ms in rows)
     if busy_ms == 0:
         log("profile: the profiler saw no device time (not measured)")
         return
-    log(f"profile over {pipe} batches: device busy {busy_ms / pipe:.3f} "
-        f"ms/batch of {wall_ms / pipe:.3f} ms wall, idle share "
-        f"{1 - busy_ms / wall_ms:.4f} | {card}")
+    log(f"profile over {batches} {unit}: device busy "
+        f"{busy_ms / batches:.3f} ms/batch of {wall_ms / batches:.3f} ms "
+        f"wall, idle share {1 - busy_ms / wall_ms:.4f} | {card}")
     for name, ms in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f"  {ms / pipe:9.3f} ms/batch {ms / busy_ms:7.2%}  {name[:90]}")
+        log(f"  {ms / batches:9.3f} ms/batch {ms / busy_ms:7.2%}  "
+            f"{name[:90]}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from dgraph_tpu_torch import backend
-    from dgraph_tpu_torch.bench import bfs
-    from dgraph_tpu_torch.ops import _build, kernels
-    from dgraph_tpu_torch.ops import bitgraph as bg
-
-    t_start = time.perf_counter()
-    dev = backend.default_device()
-    card = backend.card_info()
-    log(f"card: {card} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} numpy {np.__version__}")
-
-    # -- 2. build ----------------------------------------------------------
+def build_kernels(_build, names: list[str]) -> None:
+    """Phase 2: one nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    kernels.load_library()
+    _build.build_all(names)
     build_s = time.perf_counter() - t0
-    log(f"build: csrc/bucket_or.cu with nvcc (sm_90a) in {build_s:.2f} s")
-    for line in _build.build_logs.get("bucket_or", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} with nvcc "
+        f"(sm_90a), in parallel, in {build_s:.2f} s")
+    for name in names:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def bfs_plane(dev, card: str) -> dict:
+    """Phases 3-7: the batched BFS traversal plane. Returns the kernels
+    line's entry of bucket_or."""
+    from dgraph_tpu_torch.bench import bfs
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.ops import bitgraph as bg
 
     # -- 3. kernels against their plain versions ---------------------------
     worst = check_kernel_shapes(kernels, dev, card)
@@ -341,16 +386,422 @@ def main() -> int:
         del k_out, p_out
 
     # -- 7. device time by kernel ------------------------------------------
-    profile_batches(digest, slot_mats[1:1 + bfs.PIPE], bfs.PIPE, card)
+    profile_window(lambda: bfs.run(digest, slot_mats[1:1 + bfs.PIPE],
+                                   bfs.PIPE),
+                   bfs.PIPE, "batches", card)
 
-    log(json.dumps({"kernels": [{
-        "name": "bucket_or", "route": "cuda",
-        "source": "dgraph_tpu_torch/csrc/bucket_or.cu",
-        "replaces": "dgraph_tpu/ops/pallas_kernels.py:38",
-        "launches": launches, "max_abs_err": worst,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+    return {"name": "bucket_or", "route": "cuda",
+            "source": "dgraph_tpu_torch/csrc/bucket_or.cu",
+            "replaces": "dgraph_tpu/ops/pallas_kernels.py:38",
+            "launches": launches, "max_abs_err": worst,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+# -- the vector search plane (phases 8-12) ----------------------------------
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of one call of `fn` on the card: one warm-up, then CUDA
+    events around `reps` calls."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def score_bound_ms(calls) -> tuple[float, str]:
+    """Least time of the score products `calls` ((rows, queries) pairs)
+    on the card: rows, queries and outputs moved once over the memory
+    rate against 2 * b * n * d float32 operations over the float32 peak;
+    (ms, what bounds it)."""
+    nbytes = sum(c.numel() * c.element_size() + 4 * q.numel()
+                 + 4 * q.shape[0] * c.shape[0] for c, q in calls)
+    ops = sum(2.0 * q.shape[0] * c.shape[0] * c.shape[1] for c, q in calls)
+    by_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(by_s, ops_s) * 1e3, "bytes" if by_s >= ops_s else "operations"
+
+
+def check_score(fn, plain, rows, q, label: str) -> tuple[float, float]:
+    """Kernel against plain version, element by element, within the
+    reordering bound d * 2^-24 * sum_k |q_k c_k| (both sum the same
+    float32 products, in another order). Also writes through `out=` into
+    a slice of a larger buffer whose neighbours must stay untouched.
+    Returns (max abs error, worst error / bound)."""
+    got = fn(rows, q)
+    want = plain(rows, q)
+    d = q.shape[1]
+    bound = d * 2.0 ** -24 * torch.matmul(q.abs(), rows.abs().float().T)
+    b, n = want.shape
+    big = torch.full((b * n + 2,), 7.0, device=q.device)
+    fn(rows, q, out=big[1:b * n + 1].view(b, n))
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    ratio = float((err / bound.clamp_min(1e-30)).max())
+    if tuple(got.shape) != (b, n) or not bool((err <= bound).all()) or \
+            not torch.equal(big[1:b * n + 1].view(b, n), got) or \
+            float(big[0]) != 7.0 or float(big[-1]) != 7.0:
+        raise AssertionError(f"{label}: kernel != plain version within the "
+                             f"reordering bound (worst ratio {ratio:.3g})")
+    return float(err.max()), ratio
+
+
+def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
+    """Phase 8: score_dot and score_int8 against their plain versions on
+    every tested shape, and score_int8 over list-like slices of one
+    resident code block. Returns each kernel's worst absolute error."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {"dot": (0.0, 0.0), "int8": (0.0, 0.0)}
+    shapes = 0
+
+    def check(key, fn, plain, rows, q, label):
+        nonlocal shapes
+        e, r = check_score(fn, plain, rows, q, label)
+        worst[key] = (max(worst[key][0], e), max(worst[key][1], r))
+        shapes += 1
+
+    for d in (16, 100, 128):
+        for n in SCORE_CHECK_ROWS:
+            corpus = torch.randn((n, d), device=dev, generator=gen)
+            codes = torch.randint(-127, 128, (n, d), device=dev,
+                                  generator=gen, dtype=torch.int8)
+            for b in (1, 3, 256):
+                q = torch.randn((b, d), device=dev, generator=gen)
+                check("dot", kernels.score_dot, kernels.score_dot_reference,
+                      corpus, q, f"score_dot b={b} n={n} d={d}")
+                check("int8", kernels.score_int8,
+                      kernels.score_int8_reference, codes, q,
+                      f"score_int8 b={b} n={n} d={d}")
+            del corpus, codes
+    # list-like slices: contiguous row ranges of one resident code block
+    codes = torch.randint(-127, 128, (200_000, 128), device=dev,
+                          generator=gen, dtype=torch.int8)
+    for s, ln in ((0, 1), (7, 17), (1_001, 640), (50_000, 2_049),
+                  (194_999, 5_000), (123_457, 4_321)):  # within 200,000
+        for b in (1, 3, 37, 256):
+            q = torch.randn((b, 128), device=dev, generator=gen)
+            check("int8", kernels.score_int8, kernels.score_int8_reference,
+                  codes[s:s + ln], q, f"score_int8 rows [{s}:{s + ln}] "
+                  f"b={b}")
+    log(f"kernel check: score_dot and score_int8 within the reordering "
+        f"bound of their plain versions on {shapes} shapes (b 1/3/256, "
+        f"d 16/100/128, n 1..1,000,064, int8 list slices of 1-5,000 "
+        f"rows); worst error/bound: score_dot {worst['dot'][1]:.4g}, "
+        f"score_int8 {worst['int8'][1]:.4g} | {card}")
+    return worst["dot"][0], worst["int8"][0]
+
+
+def same_topk(label: str, got, want, corpus, queries, metric: str,
+              tol: float) -> int:
+    """Index parity of two top-k answers, row by row. A row that differs
+    passes only if, rank by rank, the two rows' float64 scores differ by
+    at most `tol` (neighbours swapped within rounding); each such flip
+    is printed with its gap. Returns the number of flipped rows."""
+    from dgraph_tpu_torch.ops import knn
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shapes {got.shape} {want.shape}")
+    flips = 0
+    for qi in range(len(want)):
+        if np.array_equal(got[qi], want[qi]):
+            continue
+        sg = knn.score_host(corpus[got[qi]], queries[qi], metric)[0]
+        sw = knn.score_host(corpus[want[qi]], queries[qi], metric)[0]
+        gap = float(np.abs(sg - sw).max())
+        log(f"  {label}: query {qi} flips {got[qi].tolist()} vs "
+            f"{want[qi].tolist()}, largest float64 score gap {gap:.3g} "
+            f"(tolerance {tol:.3g})")
+        if gap > tol:
+            raise AssertionError(f"{label}: query {qi} differs beyond "
+                                 f"rounding")
+        flips += 1
+    return flips
+
+
+def vector_plane(dev, card: str) -> list[dict]:
+    """Phases 8-12: the similar_to vector search plane at 1M x 128.
+    Returns the kernels line's entries of score_dot and score_int8."""
+    from dgraph_tpu_torch.bench import vectors as bv
+    from dgraph_tpu_torch.ops import ivf, kernels, knn
+
+    # every float32 product of this plane, the plain versions and the
+    # library yardstick included, runs in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 8. kernels against their plain versions ---------------------------
+    err_dot, err_int8 = check_score_kernels(kernels, dev, card)
+
+    # -- 9. exact and two-stage tiers at 1M x 128 --------------------------
+    t0 = time.perf_counter()
+    corpus = bv.gen_corpus(VEC_N, VEC_D, seed=0)
+    queries = bv.draw_queries(corpus, VEC_BATCH)
+    log(f"vector corpus {VEC_N} x {VEC_D} float32, batch {VEC_BATCH}, "
+        f"k {VEC_K}, {VEC_METRIC} ({time.perf_counter() - t0:.1f} s host)")
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def exact_fn(two_stage):
+        return lambda qs: knn.topk_device(corpus_dev, qs, VEC_K, VEC_METRIC,
+                                          two_stage=two_stage)
+
+    dot_launches = 0
+    answers = {}
+    for name, two_stage in (("exact", False), ("two-stage", True)):
+        fn = exact_fn(two_stage)
+        fn(queries)                                     # warm
+        kernels.score_dot.launches = 0
+        times = bv.time_batches(fn, queries, bv.RUNS, dev)
+        answers[name], _ = fn(queries)
+        got = kernels.score_dot.launches
+        if got != bv.RUNS + 1:
+            raise AssertionError(f"{name} tier launched score_dot {got} "
+                                 f"times in {bv.RUNS + 1} calls")
+        dot_launches += got
+        log(f"{name} tier: {bv.qps(VEC_BATCH, times):.1f} QPS sustained "
+            f"({bv.RUNS} batches of {VEC_BATCH} over {sum(times):.4f} s, "
+            f"s {times}); score_dot launched {got} times in {got} calls "
+            f"| {card}")
+    peak_exact = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec_two = bv.recall(answers["exact"], answers["two-stage"])
+
+    # answers: the same exact call with the plain version as its scorer
+    knn.score_dot = kernels.score_dot_reference
+    try:
+        plain_idx, _ = exact_fn(False)(queries)
+    finally:
+        knn.score_dot = kernels.score_dot
+    # cosine scores are dots over norms: the reordering bound d * 2^-24
+    # relative to |q||c|, plus a few roundings of the epilogue
+    tol = (VEC_D + 4) * 2.0 ** -24
+    flips = same_topk("exact vs plain", answers["exact"], plain_idx,
+                      corpus, queries, VEC_METRIC, tol)
+    oracle, _ = knn.topk_host(corpus, queries[:ORACLE_QUERIES], VEC_K,
+                              VEC_METRIC)
+    oflips = same_topk("exact vs float64 oracle",
+                       answers["exact"][:ORACLE_QUERIES], oracle, corpus,
+                       queries[:ORACLE_QUERIES], VEC_METRIC, tol)
+    if rec_two < knn.RECALL_TARGET:
+        raise AssertionError(f"two-stage recall@{VEC_K} {rec_two} < "
+                             f"{knn.RECALL_TARGET}")
+    log(f"answers: exact top-{VEC_K} = plain version on the card "
+        f"({flips} rounding flips in {VEC_BATCH} queries), = float64 "
+        f"topk_host on {ORACLE_QUERIES} queries ({oflips} flips); "
+        f"two-stage recall@{VEC_K} {rec_two} (>= {knn.RECALL_TARGET}); "
+        f"peak device memory {peak_exact:.2f} GiB | {card}")
+
+    # score_dot alone at the main path's shape
+    q_dev = torch.from_numpy(queries).to(dev)
+    dot_ms = cuda_ms(lambda: kernels.score_dot(corpus_dev, q_dev), 10)
+    dot_plain_ms = cuda_ms(
+        lambda: kernels.score_dot_reference(corpus_dev, q_dev), 10)
+    dot_lib_ms = cuda_ms(lambda: torch.matmul(q_dev, corpus_dev.T), 10)
+    dot_bound, dot_by = score_bound_ms([(corpus_dev, q_dev)])
+    log(f"score_dot at (b {VEC_BATCH}, n {VEC_N}, d {VEC_D}): kernel "
+        f"{dot_ms:.4f} ms, plain {dot_plain_ms:.4f} ms, torch.matmul "
+        f"(TF32 off) {dot_lib_ms:.4f} ms, bound {dot_bound:.4f} ms "
+        f"({dot_by}) | {card}")
+    del corpus_dev, q_dev
+    torch.cuda.empty_cache()
+
+    # -- 10. quantized IVF tier --------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.score_int8.launches = 0
+    t0 = time.perf_counter()
+    ix = ivf.build(corpus, seed=0, device=dev)
+    build_s = time.perf_counter() - t0
+    calib_launches = kernels.score_int8.launches
+    log(f"ivf build {build_s:.1f} s (k-means assignment on the card, "
+        f"quantization and calibration on the host): {ix.describe()}; "
+        f"default_nlist {ivf.default_nlist(VEC_N)}; calibration launched "
+        f"score_int8 {calib_launches} times (counted apart) | {card}")
+    if ix.nlist != ivf.default_nlist(VEC_N):
+        raise AssertionError(f"nlist {ix.nlist}, expected "
+                             f"{ivf.default_nlist(VEC_N)}")
+
+    def lists_probed(qs, p) -> int:
+        q_t = torch.from_numpy(np.ascontiguousarray(
+            np.atleast_2d(qs), np.float32)).to(dev)
+        _, lists = ivf._probe(q_t, ix.centroids_dev, p, VEC_METRIC)
+        li = np.unique(lists.cpu().numpy())
+        return int(np.sum(ix.starts[li + 1] > ix.starts[li]))
+
+    records = []
+
+    def counted(p, r):
+        def fn(qs):
+            kernels.score_int8.launches = 0
+            res = ivf.search(ix, corpus, qs, VEC_K, VEC_METRIC, nprobe=p,
+                             rerank=r)
+            records.append((qs, p, kernels.score_int8.launches))
+            return res
+        return fn
+
+    int8_launches = 0
+    quant = None
+    for p, r in [(ix.nprobe, None)] + bv.frontier_budgets(ix.nlist,
+                                                          k=VEC_K):
+        fn = counted(p, r)
+        fn(queries[:8])                                 # warm
+        times = bv.time_batches(fn, queries, bv.RUNS, dev)
+        gi, _ = fn(queries)
+        # each search launched score_int8 once per distinct probed list
+        per_search = []
+        for qs, pp, got in records:
+            want = lists_probed(qs, pp)
+            if got != want:
+                raise AssertionError(f"search at nprobe {pp} launched "
+                                     f"score_int8 {got} times for {want} "
+                                     f"distinct probed lists")
+            per_search.append(got)
+        records.clear()
+        int8_launches += sum(per_search)
+        rr = r or ivf.rerank_depth(VEC_K)
+        rec = bv.recall(answers["exact"], gi)
+        if r is None:
+            quant = (gi, rec)
+        log(f"quantized nprobe {p} rerank {rr}"
+            f"{' (calibrated)' if r is None else ''}: "
+            f"{bv.qps(VEC_BATCH, times):.1f} QPS sustained (s {times}), "
+            f"recall@{VEC_K} {rec}; score_int8 launches per search "
+            f"{per_search} = distinct probed lists | {card}")
+    peak_quant = torch.cuda.max_memory_allocated(dev) / 2**30
+    if quant[1] < bv.RECALL_FLOOR:
+        raise AssertionError(f"quantized recall@{VEC_K} {quant[1]} < "
+                             f"{bv.RECALL_FLOOR}")
+
+    # answers: the same search with the plain version as its scorer
+    calls = []
+
+    def recorded_plain(codes, q, out=None):
+        calls.append((codes, q))
+        res = kernels.score_int8_reference(codes, q)
+        return res if out is None else out.copy_(res)
+
+    ivf.score_int8 = recorded_plain
+    try:
+        pi, _ = ivf.search(ix, corpus, queries, VEC_K, VEC_METRIC,
+                           nprobe=ix.nprobe)
+    finally:
+        ivf.score_int8 = kernels.score_int8
+    qflips = same_topk("quantized vs plain", quant[0], pi, corpus,
+                       queries, VEC_METRIC, tol)
+    log(f"answers: quantized top-{VEC_K} at the calibrated budget = plain "
+        f"version ({qflips} rounding flips); recall@{VEC_K} {quant[1]} "
+        f"(>= {bv.RECALL_FLOOR}); peak device memory {peak_quant:.2f} GiB "
+        f"| {card}")
+
+    # score_int8 over one calibrated batch's launches
+    outs = [torch.empty((q.shape[0], c.shape[0]), device=dev)
+            for c, q in calls]
+
+    def kernel_pass():
+        for (c, q), o in zip(calls, outs):
+            kernels.score_int8(c, q, out=o)
+
+    def plain_pass():
+        for c, q in calls:
+            kernels.score_int8_reference(c, q)
+
+    int8_ms = cuda_ms(kernel_pass, 10)
+    int8_plain_ms = cuda_ms(plain_pass, 10)
+    for (c, q), o in zip(calls, outs):
+        err_int8 = max(err_int8, float(
+            (o - kernels.score_int8_reference(c, q)).abs().max()))
+    int8_bound, int8_by = score_bound_ms(calls)
+    log(f"score_int8 over one calibrated batch ({len(calls)} launches, "
+        f"{sum(q.shape[0] * c.shape[0] for c, q in calls)} scores): kernel "
+        f"{int8_ms:.4f} ms, plain {int8_plain_ms:.4f} ms, bound "
+        f"{int8_bound:.4f} ms ({int8_by}); no single PyTorch call converts "
+        f"int8 and multiplies (library_ms null) | {card}")
+    del calls, outs
+
+    # where a calibrated batch's wall time goes: the probe and the
+    # approximate stage (device work, one copy back) against the whole
+    # search, whose rest is the host's filter, cut and float64 re-rank
+    stage_s, total_s = [], []
+    for r in range(bv.RUNS):
+        qs = queries + np.float32(1e-6 * (r + 1))
+        t0 = time.perf_counter()
+        q_t = torch.from_numpy(qs).to(dev)
+        cs_t, lists_t = ivf._probe(q_t, ix.centroids_dev, ix.nprobe,
+                                   VEC_METRIC)
+        ivf._approx_scores_device(ix, lists_t.cpu().numpy(),
+                                  cs_t.cpu().numpy(), q_t)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ivf.search(ix, corpus, qs, VEC_K, VEC_METRIC)
+        torch.cuda.synchronize()
+        total_s.append(time.perf_counter() - t0)
+    log(f"quantized batch wall: probe + approximate stage "
+        f"{sum(stage_s) / len(stage_s) * 1e3:.3f} ms of "
+        f"{sum(total_s) / len(total_s) * 1e3:.3f} ms per search; the rest "
+        f"is the host's filter, cut and float64 re-rank | {card}")
+
+    # -- 11. device time by kernel -----------------------------------------
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    profile_window(lambda: exact_fn(False)(queries), 1, "exact batch", card)
+    del corpus_dev
+    profile_window(lambda: ivf.search(ix, corpus, queries, VEC_K,
+                                      VEC_METRIC),
+                   1, "quantized batch", card)
+    del ix
+    torch.cuda.empty_cache()
+
+    # -- 12. the 100k regime, briefly --------------------------------------
+    small = bv.run_regime(SMALL_N, VEC_D, VEC_BATCH, VEC_K, VEC_METRIC,
+                          dev, budgets=[], runs=1)
+    qi = small["quantized_index"]
+    log(f"{SMALL_N} regime (informational; another numpy may draw another "
+        f"corpus): nlist {qi['nlist']}, nprobe {qi['nprobe']}, "
+        f"sampleRecall {qi['sampleRecall']}, two-stage recall "
+        f"{small['two_stage_recall_at_k']}; BENCH_VECTORS.json's 100k "
+        f"record {BENCH_VECTORS_100K}")
+
+    return [
+        {"name": "score_dot", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/score.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123",
+         "launches": dot_launches, "max_abs_err": err_dot,
+         "ms": dot_ms, "plain_ms": dot_plain_ms, "bound_ms": dot_bound,
+         "bound_by": dot_by, "library_ms": dot_lib_ms},
+        {"name": "score_int8", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/score.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:158",
+         "launches": int8_launches, "max_abs_err": err_int8,
+         "ms": int8_ms, "plain_ms": int8_plain_ms, "bound_ms": int8_bound,
+         "bound_by": int8_by, "library_ms": None},
+    ]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from dgraph_tpu_torch import backend
+    from dgraph_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    dev = backend.default_device()
+    card = backend.card_info()
+    log(f"card: {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} numpy {np.__version__}")
+    build_kernels(_build, ["bucket_or", "score"])
+
+    entries = [bfs_plane(dev, card)]
+    torch.cuda.empty_cache()
+    entries += vector_plane(dev, card)
+
+    log(json.dumps({"kernels": entries}))
     log(f"wall {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -56,23 +56,57 @@ def nvcc_command(name: str, out: Path) -> list[str]:
             str(CSRC_DIR / f"{name}.cu")]
 
 
+def _finish(name: str, proc: subprocess.Popen, tmp: Path,
+            path: Path) -> None:
+    """Wait for one nvcc, record its output, and move its library into
+    place; raise if it failed."""
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
+    build_logs[name] = out
+    os.replace(tmp, path)
+
+
+def build_all(names: list[str]) -> None:
+    """Build every named source that has no current library, one nvcc
+    each, all started together, and wait for all of them."""
+    with _lock:
+        running = []
+        try:
+            for name in names:
+                path = library_path(name)
+                if name in _loaded or path.exists():
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.Popen(nvcc_command(name, tmp),
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                running.append((name, proc, tmp, path))
+            for name, proc, tmp, path in running:
+                _finish(name, proc, tmp, path)
+        finally:
+            for _, proc, _, _ in running:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    # the launch path: a loaded library is served without hashing its
+    # source again (a dict read is atomic under the interpreter lock)
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
     with _lock:
         lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        path = library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(nvcc_command(name, tmp),
-                                  capture_output=True, text=True,
-                                  timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            build_logs[name] = proc.stdout + proc.stderr
-            os.replace(tmp, path)
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib

@@ -1,15 +1,23 @@
-"""Hand-written CUDA kernels of the traversal plane, with their plain
-PyTorch versions.
+"""Hand-written CUDA kernels of the port, with their plain PyTorch
+versions.
 
-Counterpart of `dgraph_tpu/ops/pallas_kernels.py`. Bitmap words are
-held as `torch.int32`, which has the bit pattern of the reference's
-`uint32` words.
+Counterpart of `dgraph_tpu/ops/pallas_kernels.py`:
 
-`bucket_or` is the gather-OR of one BFS level bucket
-(`csrc/bucket_or.cu`, replacing `bucket_or_pallas`,
-`pallas_kernels.py:38`). On a CUDA tensor it launches the kernel, or
-raises; on a CPU tensor it runs `bucket_or_reference`, the plain
-version, which the tests hold against the reference package.
+- `bucket_or` is the gather-OR of one BFS level bucket
+  (`csrc/bucket_or.cu`, replacing `bucket_or_pallas`,
+  `pallas_kernels.py:38`). Bitmap words are held as `torch.int32`,
+  which has the bit pattern of the reference's `uint32` words.
+- `score_dot` is the float32 similarity score of the exact vector tiers
+  (`csrc/score.cu`, replacing `score_dot_pallas`,
+  `pallas_kernels.py:123`).
+- `score_int8` is the int8-code score of the quantized IVF tier
+  (`csrc/score.cu`, replacing `score_int8_pallas`,
+  `pallas_kernels.py:158`).
+
+On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
+tensor it runs its plain version (`*_reference`), which the tests hold
+against the reference package. Each wrapper counts its launches in
+`<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -138,3 +146,120 @@ def bucket_or(f: torch.Tensor, in_nb: torch.Tensor,
 
 
 bucket_or.launches = 0
+
+
+def load_score_library() -> ctypes.CDLL:
+    """The scoring kernels' library (`csrc/score.cu`), built by nvcc at
+    first use."""
+    lib = _build.load("score")
+    for fn in (lib.score_dot_launch, lib.score_int8_launch):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def score_dot_reference(corpus: torch.Tensor,
+                        queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of `score_dot`: float32 queries . corpus^T, the
+    counterpart of the reference's `jnp.dot(queries, corpus.T)`. On the
+    card it follows `torch.backends.cuda.matmul.allow_tf32`, which a
+    caller comparing float32 results keeps False."""
+    return torch.matmul(queries, corpus.T)
+
+
+def score_int8_reference(codes: torch.Tensor,
+                         queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of `score_int8`: float32 queries . float(codes)^T,
+    the counterpart of `score_int8_xla` (`pallas_kernels.py:198`)."""
+    return torch.matmul(queries, codes.to(torch.float32).T)
+
+
+def _check_score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
+                 dtype: torch.dtype, out: torch.Tensor | None) -> None:
+    if corpus.dtype != dtype or queries.dtype != torch.float32:
+        raise TypeError(f"{name} takes {dtype} rows and float32 queries, "
+                        f"got {corpus.dtype} and {queries.dtype}")
+    if corpus.dim() != 2 or queries.dim() != 2 or \
+            corpus.shape[1] != queries.shape[1]:
+        raise ValueError(f"{name} takes rows [n, d] and queries [b, d], "
+                         f"got {tuple(corpus.shape)} and "
+                         f"{tuple(queries.shape)}")
+    if corpus.device != queries.device:
+        raise ValueError(f"rows on {corpus.device} but queries on "
+                         f"{queries.device}")
+    if corpus.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {corpus.device}")
+    if not (corpus.is_contiguous() and queries.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous rows and queries")
+    if out is not None:
+        want = (queries.shape[0], corpus.shape[0])
+        if out.dtype != torch.float32 or tuple(out.shape) != want:
+            raise ValueError(f"out must be float32 {want}, got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        if out.device != corpus.device or not out.is_contiguous():
+            raise ValueError("out must be contiguous on the rows' device")
+
+
+def _score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
+           out: torch.Tensor | None) -> torch.Tensor:
+    """Launch `<name>_launch` of the scoring library; the wrapper has
+    checked its arguments."""
+    n, d = corpus.shape
+    b = queries.shape[0]
+    if out is None:
+        out = torch.empty((b, n), dtype=torch.float32, device=corpus.device)
+    if n == 0 or b == 0:
+        return out
+    launch = getattr(load_score_library(), f"{name}_launch")
+    err = launch(corpus.data_ptr(), queries.data_ptr(), out.data_ptr(),
+                 n, b, d, torch.cuda.current_stream(corpus.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"(n={n}, b={b}, d={d})")
+    return out
+
+
+def _into(res: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def score_dot(corpus: torch.Tensor, queries: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """float32 scores queries . corpus^T: corpus float32[n, d], queries
+    float32[b, d] -> float32[b, n], accumulated in float32 (no TF32).
+    `out`, if given, is a contiguous [b, n] float32 tensor written in
+    place. On CUDA tensors the kernel runs and `score_dot.launches`
+    counts it; on CPU tensors the plain version runs."""
+    _check_score("score_dot", corpus, queries, torch.float32, out)
+    if corpus.device.type == "cpu":
+        return _into(score_dot_reference(corpus, queries), out)
+    res = _score("score_dot", corpus, queries, out)
+    if corpus.shape[0] and queries.shape[0]:
+        score_dot.launches += 1
+    return res
+
+
+def score_int8(codes: torch.Tensor, queries: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """float32 scores queries . float(codes)^T: codes int8[n, d], queries
+    float32[b, d] -> float32[b, n], the int8 converted to float32 in the
+    kernel's tile. `out` as for `score_dot`. On CUDA tensors the kernel
+    runs and `score_int8.launches` counts it; on CPU tensors the plain
+    version runs."""
+    _check_score("score_int8", codes, queries, torch.int8, out)
+    if codes.device.type == "cpu":
+        return _into(score_int8_reference(codes, queries), out)
+    res = _score("score_int8", codes, queries, out)
+    if codes.shape[0] and queries.shape[0]:
+        score_int8.launches += 1
+    return res
+
+
+score_dot.launches = 0
+score_int8.launches = 0

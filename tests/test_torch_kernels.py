@@ -138,3 +138,138 @@ def test_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.load("bucket_or")
     assert not list(tmp_path.glob("*.so"))
+
+
+# -- score_dot and score_int8 (csrc/score.cu) ---------------------------------
+
+
+def reorder_bound(q, rows):
+    """d * 2^-24 * sum_k |q_k c_k|: the most two float32 dot products of
+    depth d that sum the same products in other orders can differ by
+    (here float64, element by element)."""
+    q64, c64 = np.abs(np.asarray(q, np.float64)), np.abs(
+        np.asarray(rows, np.float64))
+    return q.shape[1] * 2.0 ** -24 * (q64 @ c64.T)
+
+
+def test_score_dot_reference_matches_pallas_interpret():
+    """As tests/test_knn.py's Pallas parity case: 2,048 x 64, b = 4."""
+    from dgraph_tpu.ops.pallas_kernels import score_dot_pallas
+
+    rng = np.random.default_rng(6)
+    corpus = rng.standard_normal((2048, 64), dtype=np.float32)
+    q = rng.standard_normal((4, 64), dtype=np.float32)
+    got = kernels.score_dot_reference(torch.from_numpy(corpus),
+                                      torch.from_numpy(q)).numpy()
+    bound = reorder_bound(q, corpus)
+    for want in (np.asarray(score_dot_pallas(jnp.asarray(corpus),
+                                             jnp.asarray(q),
+                                             interpret=True)),
+                 np.asarray(jnp.dot(jnp.asarray(q), jnp.asarray(corpus).T))):
+        assert got.shape == want.shape == (4, 2048)
+        assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+
+
+def test_score_int8_reference_matches_pallas_interpret():
+    """As tests/test_knn.py's IVF case: an index's first 512 code rows."""
+    from dgraph_tpu.ops import ivf
+    from dgraph_tpu.ops.pallas_kernels import score_int8_pallas, score_int8_xla
+
+    rng = np.random.default_rng(33)
+    centers = rng.standard_normal((32, 64)).astype(np.float32)
+    corpus = centers[rng.integers(0, 32, 4096)] + np.float32(0.3) * \
+        rng.standard_normal((4096, 64)).astype(np.float32)
+    ix = ivf.build(corpus, seed=0, calibrate=False)
+    codes = np.asarray(ix.codes[:512], np.int8)
+    q = corpus[:3] + np.float32(0.01)
+    got = kernels.score_int8_reference(torch.from_numpy(codes),
+                                       torch.from_numpy(q)).numpy()
+    bound = reorder_bound(q, codes)
+    for want in (np.asarray(score_int8_pallas(jnp.asarray(codes),
+                                              jnp.asarray(q),
+                                              interpret=True)),
+                 np.asarray(score_int8_xla(jnp.asarray(codes),
+                                           jnp.asarray(q)))):
+        assert got.shape == want.shape == (3, 512)
+        assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+
+
+@pytest.mark.parametrize("name", ["score_dot", "score_int8"])
+@pytest.mark.parametrize("n,b,d", [(1, 1, 16), (777, 3, 100), (130, 5, 7)])
+def test_score_wrapper_on_cpu_runs_plain_version_without_launch(name, n, b,
+                                                                d):
+    rng = np.random.default_rng(n + b + d)
+    if name == "score_dot":
+        rows = torch.from_numpy(rng.standard_normal((n, d), np.float32))
+    else:
+        rows = torch.from_numpy(rng.integers(-127, 128, (n, d), np.int8))
+    q = torch.from_numpy(rng.standard_normal((b, d), np.float32))
+    wrapper = getattr(kernels, name)
+    plain = getattr(kernels, f"{name}_reference")
+    before = wrapper.launches
+    got = wrapper(rows, q)
+    assert wrapper.launches == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, n)
+    assert torch.equal(got, plain(rows, q))
+    # out=: a [b, n] view of a flat buffer, neighbours kept
+    big = torch.full((b * n + 2,), 7.0)
+    res = wrapper(rows, q, out=big[1:b * n + 1].view(b, n))
+    assert res.data_ptr() == big[1:].data_ptr()
+    assert torch.equal(res, got)
+    assert float(big[0]) == 7.0 and float(big[-1]) == 7.0
+
+
+def _bad_score_inputs(name, case):
+    dtype = torch.float32 if name == "score_dot" else torch.int8
+    rows = torch.zeros((10, 4), dtype=dtype)
+    q = torch.zeros((3, 4), dtype=torch.float32)
+    out = None
+    if case == "rows_dtype":
+        rows = rows.to(torch.float64 if name == "score_dot" else torch.int16)
+    elif case == "q_dtype":
+        q = q.to(torch.float64)
+    elif case == "rank":
+        rows = rows.reshape(-1)
+    elif case == "depth":
+        q = torch.zeros((3, 5), dtype=torch.float32)
+    elif case == "non_contiguous":
+        rows = torch.zeros((4, 10), dtype=dtype).t()
+    elif case == "out_shape":
+        out = torch.zeros((3, 11))
+    elif case == "out_dtype":
+        out = torch.zeros((3, 10), dtype=torch.float64)
+    elif case == "out_strided":
+        out = torch.zeros((3, 20))[:, ::2]
+    elif case == "device":
+        rows, q = rows.to("meta"), q.to("meta")
+    elif case == "mixed_devices":
+        q = q.to("meta")
+    return rows, q, out
+
+
+@pytest.mark.parametrize("name", ["score_dot", "score_int8"])
+@pytest.mark.parametrize("case", [
+    "rows_dtype", "q_dtype", "rank", "depth", "non_contiguous", "out_shape",
+    "out_dtype", "out_strided", "device", "mixed_devices"])
+def test_score_wrapper_rejects(name, case):
+    rows, q, out = _bad_score_inputs(name, case)
+    with pytest.raises((TypeError, ValueError)):
+        getattr(kernels, name)(rows, q, out=out)
+
+
+def test_score_source_builds_beside_bucket_or():
+    assert (_build.CSRC_DIR / "score.cu").exists()
+    assert _build.library_path("score").parent == _build.BUILD_DIR
+    src = (_build.CSRC_DIR / "score.cu").read_text()
+    for entry in ("score_dot_launch", "score_int8_launch"):
+        assert f'extern "C" int {entry}(' in src
+
+
+def test_build_all_failure_raises_and_leaves_nothing(monkeypatch, tmp_path):
+    """One nvcc per source, started together; any failure raises."""
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build_all(["bucket_or", "score"])
+    assert not list(tmp_path.glob("*.so"))
