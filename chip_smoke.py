@@ -49,7 +49,35 @@ regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
 11. torch.profiler over one exact and one quantized batch;
 12. the 100k regime, beside BENCH_VECTORS.json's record (informational).
 
-Each figure is printed beside the card's name and power limit. Then one
+The sorted-UID set-algebra plane (`ops/uidvec`, `ops/codec`,
+`ops/setops`, `ops/mergepath`, through `bench/setops.py`):
+
+13. bitmap_and against its plain version on the card, bit for bit, over
+   k {1, 2, 3, 4, 8} x B {1, 7, 8, 9, 1,024, 4,096} blocks of 1,024
+   words, an odd word count at a misaligned start, and a non-contiguous
+   input the wrapper must refuse;
+14. UID-intersect GB/s (bench_micro.py's three configs) through the
+   batched `uidvec.intersect`, each pair equal to np.intersect1d; both
+   membership arms timed; peak device memory;
+15. the k-way configs (8 x 65,536, 64 x 8,192, 512 x 1,024) through the
+   host folds and `union_many_device` / `intersect_many_device`, all
+   equal;
+16. the compressed sweep (bench_micro.py's four configs and the
+   selective gate, on the host), then setops-and-67M: four seeded
+   posting lists over 2^26 uids (densities 1/2, 1/2, 1/4, 1/4), all
+   4 x 1,024 blocks bitmaps, through `intersect_packs` with the card as
+   its device, bitmap_and's launches set to 0 just before and asserted
+   one per call after; the answer against `intersect_many` on the dense
+   lists and the host fold; the call's wall time beside the host
+   fold's, a host profile of the call, the kernel beside its bound, its
+   plain version and torch.bitwise_and (back to back, and alone from a
+   flushed L2, by CUDA events), and the device's idle share (profiled,
+   and from the call's device work timed part by part);
+17. `mergepath_intersect` at the UID-intersect configs, equal to
+   `uidvec.intersect` with no overflow at hit_frac=1, in GB/s.
+
+The planes run in the order BFS, set algebra, vectors. Each figure is
+printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
 the rest of the repo.
@@ -92,6 +120,10 @@ SCORE_CHECK_ROWS = (1, 777, 65_536, 1_000_064)
 # generator seeds): informational only
 BENCH_VECTORS_100K = {"nlist": 256, "nprobe": 4, "sampleRecall": 1.0,
                       "two_stage_recall_at_k": 1.0}
+# the set-algebra plane: timed device calls per UID-intersect config, and
+# timed intersect_packs calls of setops-and-67M on each route
+SET_RUNS = 5
+AND_RUNS = 3
 
 
 def log(msg: str) -> None:
@@ -781,6 +813,300 @@ def vector_plane(dev, card: str) -> list[dict]:
     ]
 
 
+# -- the sorted-UID set-algebra plane (phases 13-17) ------------------------
+
+def check_bitmap_and(kernels, dev, card: str) -> int:
+    """Phase 13: bitmap_and against bitmap_and_reference on the card, bit
+    for bit; the wrapper refuses a non-contiguous input. Returns the
+    largest count of differing words (0, or the check raises)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def words(*shape):
+        return torch.randint(-2**63, 2**63 - 1, shape, dtype=torch.int64,
+                             device=dev, generator=gen)
+
+    cases = [words(k, b, 1024) for k in (1, 2, 3, 4, 8)
+             for b in (1, 7, 8, 9, 1024, 4096)]
+    # an odd word count (one word a thread) starting 8 bytes past a
+    # 16-byte boundary
+    flat = words(4 * 15 + 1)
+    cases.append(flat[1:].view(4, 3, 5))
+    worst = 0
+    for mats in cases:
+        got = kernels.bitmap_and(mats)
+        want = kernels.bitmap_and_reference(mats)
+        torch.cuda.synchronize()
+        worst = max(worst, int((got != want).sum()))
+        if worst:
+            raise AssertionError(f"bitmap_and != plain version at "
+                                 f"{tuple(mats.shape)}")
+    try:
+        kernels.bitmap_and(words(2, 1024, 8).transpose(1, 2))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("bitmap_and took a non-contiguous input")
+    log(f"kernel check: bitmap_and bit-exact to its plain version on "
+        f"{len(cases)} shapes (k 1-8, B 1-4,096, an odd misaligned one); "
+        f"a non-contiguous input refused | {card}")
+    return worst
+
+
+def uid_intersect_phase(bs, dev, card: str):
+    """Phase 14: UID-intersect GB/s. Returns the device operands of each
+    config for phase 17."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    records, operands = bs.uid_intersect_bench(runs=SET_RUNS, device=dev)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    for r in records:
+        arms = r["member_mask_ms"]
+        log(f"uid intersect {r['config']} {r['shape_a']} x {r['shape_b']}: "
+            f"{r['ms']:.4f} ms = {r['device_gbps']:.3f} GB/s on the card "
+            f"(CUDA events), CPU np.intersect1d {r['cpu_gbps']:.3f} GB/s, "
+            f"{r['speedup']:.1f}x; member_mask binary search "
+            f"{arms['searchsorted']:.4f} ms, co-sort {arms['cosort']:.4f} "
+            f"ms | {card}")
+    log(f"uid_intersect_gbps {max(r['device_gbps'] for r in records):.3f} "
+        f"(best config); every pair = np.intersect1d; peak device memory "
+        f"{peak_gb:.2f} GiB; phase {time.perf_counter() - t0:.1f} s | {card}")
+    return operands
+
+
+def and_67m_phase(bs, codec, setops, kernels, dev, card: str) -> dict:
+    """Phase 16, second half: setops-and-67M through intersect_packs on
+    the card. Returns the kernels line's entry of bitmap_and."""
+    import cProfile
+    import pstats
+
+    t0 = time.perf_counter()
+    lists = bs.and_lists()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packs = [codec.compress(x) for x in lists]
+    comp_s = time.perf_counter() - t0
+    n_blocks = 1 << (bs.AND_SPACE_BITS - 16)
+    for p in packs:
+        if len(p.keys) != n_blocks or \
+                not bool((p.forms == codec.FORM_BITMAP).all()):
+            raise AssertionError(f"setops-and-67M: {len(p.keys)} blocks, "
+                                 f"forms {np.unique(p.forms).tolist()}")
+    log(f"setops-and-67M: lists of {[len(x) for x in lists]} uids over "
+        f"2^{bs.AND_SPACE_BITS} ({gen_s:.1f} s host), compressed to "
+        f"{len(packs)} x {n_blocks} bitmap blocks, "
+        f"{sum(p.nbytes for p in packs)} bytes ({comp_s:.1f} s host)")
+    t0 = time.perf_counter()
+    want = setops.intersect_many(lists)
+    dense_s = time.perf_counter() - t0
+    del lists
+
+    # the main path: intersect_packs with the card as its device
+    setops.intersect_packs(packs, device=dev)           # warm
+    torch.cuda.synchronize()
+    kernels.bitmap_and.launches = 0
+    dev_s = []
+    for _ in range(AND_RUNS):
+        t0 = time.perf_counter()
+        got = setops.intersect_packs(packs, device=dev)
+        torch.cuda.synchronize()
+        dev_s.append(time.perf_counter() - t0)
+    launches = kernels.bitmap_and.launches
+    if launches != AND_RUNS:
+        raise AssertionError(f"{AND_RUNS} intersect_packs calls launched "
+                             f"bitmap_and {launches} times")
+    host_s = []
+    for _ in range(AND_RUNS):
+        t0 = time.perf_counter()
+        host = setops.intersect_packs(packs)
+        host_s.append(time.perf_counter() - t0)
+    if not (np.array_equal(got, want) and np.array_equal(host, want)):
+        raise AssertionError("setops-and-67M: intersect_packs on the card "
+                             "!= intersect_many on the dense lists or the "
+                             "host fold")
+    log(f"setops-and-67M answer: {len(want)} uids = intersect_many on the "
+        f"dense lists ({dense_s:.3f} s) = the host fold; bitmap_and "
+        f"launched {launches} times in {AND_RUNS} calls")
+    log(f"intersect_packs wall: card {np.mean(dev_s) * 1e3:.3f} ms "
+        f"(s {[round(t, 4) for t in dev_s]}), host fold "
+        f"{np.mean(host_s) * 1e3:.3f} ms (s {[round(t, 4) for t in host_s]}) "
+        f"| {card}")
+    profile_window(lambda: setops.intersect_packs(packs, device=dev), 1,
+                   "intersect_packs call", card)
+    prof = cProfile.Profile()
+    prof.runcall(setops.intersect_packs, packs, device=dev)
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
+    total = sum(v[2] for v in stats.stats.values())
+    log(f"host profile of one call (cProfile, {total * 1e3:.1f} ms "
+        f"under the profiler), self time:")
+    for (path, line, fn), (_, ncalls, tt, _, _) in rows:
+        log(f"  {tt * 1e3:9.3f} ms {ncalls:7d} calls  "
+            f"{os.path.basename(path)}:{line} {fn}")
+
+    # the kernel alone at the main path's shape: the stacked words of
+    # the 1,024 all-bitmap keys, as bitmap_and_device hands them over
+    mats = torch.from_numpy(np.stack([
+        np.stack([p.block_words(i) for i in range(n_blocks)])
+        for p in packs]).view(np.int64)).to(dev)
+    k, b, w = mats.shape
+    err = int((kernels.bitmap_and(mats)
+               != kernels.bitmap_and_reference(mats)).sum())
+    if err:
+        raise AssertionError("bitmap_and != plain version at the main "
+                             "path's shape")
+    two = mats[:2]
+    fns = {"kernel": lambda: kernels.bitmap_and(mats),
+           "plain": lambda: kernels.bitmap_and_reference(mats),
+           "kernel k 2": lambda: kernels.bitmap_and(two),
+           "torch.bitwise_and k 2": lambda: torch.bitwise_and(two[0],
+                                                              two[1])}
+    # a call as the caller sees it (CUDA events over back-to-back calls,
+    # launch overhead included), and its device time alone with the
+    # 50 MB L2 flushed before each call (40 MiB of words would stay
+    # resident between calls)
+    call_ms = {name: cuda_ms(fn, 50) for name, fn in fns.items()}
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    cold_ms = {name: device_ms_cold(fn, 20, flush)
+               for name, fn in fns.items()}
+    del flush
+    bound = (k + 1) * b * w * 8 / HBM_BYTES_PER_S * 1e3
+    log(f"bitmap_and at (k {k}, B {b}, W {w}), bound {bound:.4f} ms "
+        f"(bytes), at k 2 {3 * b * w * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+        f"ms a call back to back / alone from a flushed L2 (CUDA "
+        f"events): " + ", ".join(
+            f"{name} {call_ms[name]:.4f} / {cold_ms[name]:.4f}"
+            for name in fns) + f" | {card}")
+    # the call's device work, each part timed alone at its sizes by CUDA
+    # events: the profile above can miss the upload (it did on an H100
+    # with torch 2.11, after the BFS plane's profile)
+    host_words = np.empty((k, b, w), np.int64)
+    up_ms = cuda_ms(lambda: torch.from_numpy(host_words).to(dev), 5)
+    res = kernels.bitmap_and(mats)
+    down_ms = cuda_ms(lambda: res.cpu(), 5)
+    busy = up_ms + cold_ms["kernel"] + down_ms
+    wall_ms = np.mean(dev_s) * 1e3
+    log(f"intersect_packs device work by parts: {up_ms:.4f} ms up, "
+        f"{cold_ms['kernel']:.4f} ms kernel, {down_ms:.4f} ms down = "
+        f"{busy:.4f} ms "
+        f"of {wall_ms:.3f} ms wall, idle share {1 - busy / wall_ms:.4f} "
+        f"| {card}")
+    del mats, two, res
+    return {"name": "bitmap_and", "route": "cuda",
+            "source": "dgraph_tpu_torch/csrc/bitmap_and.cu",
+            "replaces": "dgraph_tpu/ops/pallas_kernels.py:217",
+            "launches": launches, "max_abs_err": err,
+            "ms": cold_ms["kernel"], "plain_ms": cold_ms["plain"],
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": cold_ms["torch.bitwise_and k 2"]}
+
+
+def device_ms_cold(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean device ms of one call of `fn` with the L2 flushed before it:
+    CUDA events right around each call, queued behind a fill of `flush`
+    (larger than the L2) that keeps the card busy while the host queues
+    the call, so no launch gap falls between the events."""
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def mergepath_phase(mergepath, operands, dev, card: str) -> None:
+    """Phase 17: mergepath_intersect at the UID-intersect configs, pair by
+    pair, against the batched uidvec.intersect of phase 14."""
+    for pairs, da, db, want in operands:
+        mergepath.mergepath_intersect(da[0], db[0], k=1024, hit_frac=1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # one timed pass over every pair, then its answers checked
+        start.record()
+        res = [mergepath.mergepath_intersect(da[i], db[i], k=1024,
+                                             hit_frac=1)
+               for i in range(da.shape[0])]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        got = torch.stack([o for o, _ in res])
+        ovf = bool(torch.stack([f for _, f in res]).any())
+        if not torch.equal(got, want) or ovf:
+            raise AssertionError(f"mergepath_intersect != uidvec.intersect "
+                                 f"(overflow {ovf}) at {tuple(da.shape)} x "
+                                 f"{tuple(db.shape)}")
+        nbytes = (da.numel() + db.numel()) * 4
+        log(f"mergepath {tuple(da.shape)} x {tuple(db.shape)}, "
+            f"{da.shape[0]} calls of k 1024, hit_frac 1: {ms:.3f} ms = "
+            f"{nbytes / ms / 1e6:.3f} GB/s, = uidvec.intersect, no "
+            f"overflow | {card}")
+
+
+def setops_plane(dev, card: str) -> dict:
+    """Phases 13-17: the sorted-UID set-algebra plane. Returns the
+    kernels line's entry of bitmap_and."""
+    from dgraph_tpu_torch.bench import setops as bs
+    from dgraph_tpu_torch.ops import codec, kernels, mergepath, setops
+
+    # -- 13. the kernel against its plain version --------------------------
+    worst = check_bitmap_and(kernels, dev, card)
+
+    # -- 14. UID-intersect GB/s --------------------------------------------
+    operands = uid_intersect_phase(bs, dev, card)
+
+    # -- 15. the k-way configs ---------------------------------------------
+    t0 = time.perf_counter()
+    for r in bs.kway_bench(runs=3, device=dev):
+        log(f"k-way {r['sets']} x {r['set_size']}: union host "
+            f"{r['union_kway_ms']:.3f} ms, card {r['union_device_ms']:.3f} "
+            f"ms; intersect host {r['intersect_kway_ms']:.3f} ms, card "
+            f"{r['intersect_device_ms']:.3f} ms (wall, best of 3, card = "
+            f"host folds) | {card}")
+    # the host folds' np.unique against a sort and an adjacent compare,
+    # on the concatenation of the first config's union
+    cat = np.concatenate(bs.kway_sets(8, 65_536, np.random.default_rng(7))[0])
+    u_s, _ = bs.timed(lambda: np.unique(cat), 3, dev)
+    s_s, _ = bs.timed(lambda: bs.sorted_unique(cat), 3, dev)
+    log(f"host numpy {np.__version__} on {len(cat)} uint64: np.unique "
+        f"{u_s * 1e3:.3f} ms, np.sort + adjacent compare {s_s * 1e3:.3f} ms; "
+        f"k-way phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. the compressed sweep, then setops-and-67M ---------------------
+    t0 = time.perf_counter()
+    sweep = bs.setops_compressed_bench(runs=1)
+    for r in sweep["records"]:
+        log(f"compressed {r['mix']} n {r['set_size']} span 2^"
+            f"{r['span_bits']}: dense {r['dense_intersect_ms']:.3f} ms, "
+            f"decode+i {r['decode_then_intersect_ms']:.3f} ms, compressed "
+            f"{r['compressed_intersect_ms']:.3f} ms; union dense "
+            f"{r['dense_union_ms']:.3f} / compressed "
+            f"{r['compressed_union_ms']:.3f} ms; bytes ratio "
+            f"{r['bytes_ratio']:.2f}; bitmap blocks {r['bitmap_blocks']} "
+            f"(host)")
+    g = sweep["gate"]
+    if not g["within_budget"]:
+        raise AssertionError(f"selective gate lost: {g}")
+    log(f"selective gate: probe {g['probe']} vs list {g['list']}: "
+        f"decode+i {g['decode_then_intersect_ms']:.3f} ms, compressed "
+        f"{g['compressed_intersect_ms']:.3f} ms, block skipping "
+        f"{g['block_skip_speedup']:.1f}x (host); sweep "
+        f"{time.perf_counter() - t0:.1f} s")
+    entry = and_67m_phase(bs, codec, setops, kernels, dev, card)
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+
+    # -- 17. merge-path ----------------------------------------------------
+    t0 = time.perf_counter()
+    mergepath_phase(mergepath, operands, dev, card)
+    log(f"merge-path phase {time.perf_counter() - t0:.1f} s")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -795,11 +1121,18 @@ def main() -> int:
     card = backend.card_info()
     log(f"card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} numpy {np.__version__}")
-    build_kernels(_build, ["bucket_or", "score"])
+    build_kernels(_build, ["bucket_or", "score", "bitmap_and"])
 
-    entries = [bfs_plane(dev, card)]
-    torch.cuda.empty_cache()
-    entries += vector_plane(dev, card)
+    # the set-algebra plane runs before the vector plane: after the
+    # vector plane's profiles, torch.profiler (torch 2.11, CUDA 12.8)
+    # records no device activity for the rest of the process
+    entries = []
+    for plane in (bfs_plane, setops_plane, vector_plane):
+        t0 = time.perf_counter()
+        got = plane(dev, card)
+        entries += got if isinstance(got, list) else [got]
+        torch.cuda.empty_cache()
+        log(f"{plane.__name__}: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": entries}))
     log(f"wall {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,10 @@ Counterpart of `dgraph_tpu/ops/pallas_kernels.py`:
 - `score_int8` is the int8-code score of the quantized IVF tier
   (`csrc/score.cu`, replacing `score_int8_pallas`,
   `pallas_kernels.py:158`).
+- `bitmap_and` is the k-way word-AND of the compressed intersection's
+  all-bitmap blocks (`csrc/bitmap_and.cu`, replacing
+  `bitmap_and_pallas`, `pallas_kernels.py:217`). Words are
+  `torch.int64`, the bit pattern of the reference's uint64 words.
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs its plain version (`*_reference`), which the tests hold
@@ -263,3 +267,59 @@ def score_int8(codes: torch.Tensor, queries: torch.Tensor,
 
 score_dot.launches = 0
 score_int8.launches = 0
+
+
+def load_bitmap_library() -> ctypes.CDLL:
+    """The word-AND kernel's library (`csrc/bitmap_and.cu`), built by
+    nvcc at first use."""
+    lib = _build.load("bitmap_and")
+    fn = lib.bitmap_and_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bitmap_and_reference(mats: torch.Tensor) -> torch.Tensor:
+    """Plain version of `bitmap_and`: mats[0] & mats[1] & ... &
+    mats[k-1], the reference's pairwise fold (`bitmap_and_device`,
+    `dgraph_tpu/ops/setops.py:573`)."""
+    out = mats[0].clone()
+    for m in mats[1:]:
+        out &= m
+    return out
+
+
+def bitmap_and(mats: torch.Tensor) -> torch.Tensor:
+    """k-way AND of stacked bitmap word matrices: mats int64[k, B, W]
+    -> int64[B, W] (each int64 holds the bits of one uint64 word; W is
+    1024 for a 2^16-uid block). On CUDA tensors the kernel runs and
+    `bitmap_and.launches` counts it; on CPU tensors the plain version
+    runs."""
+    if mats.dtype != torch.int64:
+        raise TypeError(f"bitmap_and takes int64 words, got {mats.dtype}")
+    if mats.dim() != 3 or mats.shape[0] == 0:
+        raise ValueError(f"bitmap_and takes mats [k >= 1, B, W], got "
+                         f"{tuple(mats.shape)}")
+    if not mats.is_contiguous():
+        raise ValueError("bitmap_and takes contiguous mats")
+    if mats.device.type == "cpu":
+        return bitmap_and_reference(mats)
+    if mats.device.type != "cuda":
+        raise ValueError(f"bitmap_and runs on cuda or cpu, not {mats.device}")
+    k, b, w = mats.shape
+    out = torch.empty((b, w), dtype=torch.int64, device=mats.device)
+    if b * w == 0:
+        return out
+    err = load_bitmap_library().bitmap_and_launch(
+        mats.data_ptr(), out.data_ptr(), k, b * w,
+        torch.cuda.current_stream(mats.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bitmap_and kernel launch failed: CUDA error "
+                           f"{err} (k={k}, B={b}, W={w})")
+    bitmap_and.launches += 1
+    return out
+
+
+bitmap_and.launches = 0

@@ -1,0 +1,671 @@
+"""k-way sorted-UID set algebra: port of `dgraph_tpu/ops/setops.py`, the
+host half of the reference's hottest loop (algo/uidlist.go:137
+IntersectWith, :287 IntersectSorted, :354 MergeSorted), its device
+variants over the port's `ops/uidvec` co-sort, and the set algebra on
+compressed operands (`ops/codec.CompressedPack`).
+
+Every input is a sorted-unique uint64 uid vector (the repo-wide
+invariant). The host folds and the compressed-pack algebra are numpy,
+copied from the reference:
+
+  * union_many:     one concat + ONE sort (np.unique) over all k sets;
+  * intersect_many: smallest-first fold, each step a galloping
+                    ``searchsorted`` probe of the larger side when the
+                    sizes are lopsided (algo/uidlist.go:151's strategy
+                    pick collapsed to two numpy regimes);
+  * difference:     setdiff1d with the uniqueness invariant asserted.
+
+The *_device variants stack the sets into one padded matrix on the
+device (the card unless told otherwise) and run `uidvec.merge_many` /
+`uidvec.intersect_many`. `intersect_packs(device=...)` ANDs its
+all-bitmap blocks on the device with the CUDA kernel
+`ops.kernels.bitmap_and` (`bitmap_and_device`); with the default
+`device=False` it folds them on the host, as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from dgraph_tpu_torch.backend import resolve_device
+from dgraph_tpu_torch.ops import codec as _codec
+from dgraph_tpu_torch.ops import kernels, uidvec
+
+_EMPTY = np.empty(0, dtype=np.uint64)
+
+# a searchsorted probe of the big side beats the full merge once the
+# sizes diverge by this much (same ratio the pairwise fold used; ref
+# algo/uidlist.go:151 picks its strategy by the same ratio)
+_GALLOP_RATIO = 16
+
+# device sets are uint32 with 0xFFFFFFFF reserved as padding
+_MAX_U32 = 0xFFFFFFFE
+
+# all-bitmap keys from which intersect_packs takes the device AND
+_DEVICE_MIN_BLOCKS = 8
+
+
+def intersect_pair(a: np.ndarray, b: np.ndarray,
+                   gallop_ratio: int = _GALLOP_RATIO) -> np.ndarray:
+    """Intersection of two sorted-unique uid vectors. `gallop_ratio`
+    is the size-skew threshold past which the searchsorted probe of
+    the big side replaces the full merge — the adaptive planner
+    passes a density-derived value (query/planner.py gallop_ratio:
+    sparse expected intersections gallop from 4x skew, dense ones
+    merge until 48x — the SIMD-intersection paper's pivot) where the
+    static default stays 16."""
+    la, lb = len(a), len(b)
+    if la == 0 or lb == 0:
+        return _EMPTY
+    if la > lb:
+        a, b = b, a
+        la, lb = lb, la
+    if lb >= gallop_ratio * la:
+        idx = np.searchsorted(b, a)
+        np.minimum(idx, lb - 1, out=idx)
+        return a[b[idx] == a]
+    return np.intersect1d(a, b, assume_unique=True)
+
+
+def union_pair(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Union of two sorted-unique uid vectors."""
+    if not len(a):
+        return np.asarray(b)
+    if not len(b):
+        return np.asarray(a)
+    return np.union1d(a, b)
+
+
+def difference(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a \\ b over sorted-unique uid vectors."""
+    return np.setdiff1d(a, b, assume_unique=True)
+
+
+def union_many(parts: Sequence[np.ndarray]) -> np.ndarray:
+    """k-way union: one concat + one sort + adjacent-unique — the k-1
+    ``union1d`` accumulator re-sorts become a single O(N log N) pass
+    (ref algo.MergeSorted's uint64Heap loop, algo/uidlist.go:354)."""
+    live = [p for p in parts if len(p)]
+    if not live:
+        return _EMPTY
+    if len(live) == 1:
+        return np.asarray(live[0])
+    return np.unique(np.concatenate(live))
+
+
+def intersect_many(parts: Sequence[np.ndarray],
+                   gallop_ratio=_GALLOP_RATIO) -> np.ndarray:
+    """k-way intersection, smallest set first so every galloping probe
+    runs over the narrowest possible accumulator (ref
+    algo.IntersectSorted sorts by length, algo/uidlist.go:287).
+    `gallop_ratio` tunes the per-pair gallop-vs-merge pivot (see
+    intersect_pair): one int for every fold, or a sequence of
+    per-FOLD ratios aligned with the ascending fold order (the
+    planner's intersect_schedule — the accumulator gets sparser as
+    folds proceed, so late folds gallop earlier). A ratio only picks
+    the strategy; results are byte-identical either way."""
+    if not len(parts):
+        return _EMPTY
+    ordered = sorted(parts, key=len)
+    per_fold = None
+    if not isinstance(gallop_ratio, int):
+        per_fold = tuple(gallop_ratio)
+        gallop_ratio = _GALLOP_RATIO
+    acc = np.asarray(ordered[0])
+    for i, p in enumerate(ordered[1:]):
+        if not len(acc):
+            return _EMPTY
+        r = per_fold[i] if per_fold is not None \
+            and i < len(per_fold) else gallop_ratio
+        acc = intersect_pair(acc, p, r)
+    return acc
+
+
+def count_filter(parts: Sequence[np.ndarray], need: int) -> np.ndarray:
+    """Uids appearing in at least `need` of the sorted-unique sets —
+    the q-gram count filter of fuzzy match (ref worker/match.go
+    uidsForMatch + the T-3d counting bound). Pigeonhole: a uid with
+    >= need hits must appear in one of the smallest k-need+1 sets, so
+    only THOSE union; counts then come from one vectorized
+    searchsorted probe per set over that (much smaller) candidate
+    vector — no k-set concat + full sort (which at the 21M regime
+    re-sorted ~10M uids per match() call)."""
+    k = len(parts)
+    if need > k:
+        return _EMPTY
+    if need <= 1:
+        return union_many(parts)
+    ordered = sorted(parts, key=len)
+    m = k - need + 1
+    small = [p for p in ordered[:m] if len(p)]
+    if not small:
+        return _EMPTY
+    # the candidate union's own sort yields the counts WITHIN the
+    # small sets for free — only the k-m large sets need probing
+    cand, counts = np.unique(np.concatenate(small),
+                             return_counts=True) \
+        if len(small) > 1 else (small[0], np.ones(len(small[0]),
+                                                  np.int64))
+    rest = ordered[m:]
+    total = sum(len(p) for p in parts)
+    # adaptive: k-m membership probes over |cand| (~25ns each) vs one
+    # flat sort over every element (~40ns each) — dense-overlap sets
+    # (|cand| near the whole uid space) lose the probe race
+    if len(cand) * len(rest) * 25 >= total * 40:
+        uids, counts = np.unique(np.concatenate(
+            [p for p in parts if len(p)]), return_counts=True)
+        return uids[counts >= need]
+    # probe smallest-first with incremental pruning: after j of the
+    # remaining sets a candidate still needs
+    # counts >= need - (len(rest) - j), so the LARGEST (most
+    # expensive) probes run over an already-thinned vector
+    for j, p in enumerate(rest):
+        lp = len(p)
+        if lp:
+            idx = np.searchsorted(p, cand)
+            np.minimum(idx, lp - 1, out=idx)
+            counts += p[idx] == cand
+        floor = need - (len(rest) - j - 1)
+        if floor > 0:
+            keep = counts >= floor
+            if not keep.all():
+                cand, counts = cand[keep], counts[keep]
+                if not len(cand):
+                    return _EMPTY
+    return cand[counts >= need]
+
+
+# -- device variants (ops/uidvec co-sort, one call) ---------------------
+
+
+def _device_matrix(parts: Sequence[np.ndarray]) -> Optional[np.ndarray]:
+    """Stack k sorted uid vectors into one padded matrix (uint32 values
+    in int64, the port's device uid type), or None when any uid exceeds
+    the 32-bit device plane (callers fall back to the host fold).
+
+    BOTH dimensions bucket to powers of two, as in the reference:
+    surplus rows REPLICATE the last row, which is exact for union
+    (dedup absorbs it) and for intersection (idempotent), unlike
+    sentinel rows which would empty an intersection."""
+    width = uidvec.pad_to(max((len(p) for p in parts), default=0))
+    k = max(len(parts), 1)
+    kp = uidvec.pad_to(k, minimum=2)
+    mat = np.full((kp, width), uidvec.SENTINEL, np.int64)
+    for i, p in enumerate(parts):
+        if len(p) and int(p[-1]) > _MAX_U32:
+            return None
+        mat[i, : len(p)] = np.asarray(p, np.uint64).astype(np.int64)
+    for i in range(k, kp):
+        mat[i] = mat[k - 1]
+    return mat
+
+
+def union_many_device(parts: Sequence[np.ndarray],
+                      device: str | torch.device | None = None
+                      ) -> Optional[np.ndarray]:
+    """k-way union in one device call (uidvec.merge_many: concat +
+    single sort + adjacent-unique) on `device` (the card unless told
+    otherwise). None -> caller uses the host fold (>32-bit uids)."""
+    live = [p for p in parts if len(p)]
+    if len(live) < 2:
+        return union_many(live)
+    mat = _device_matrix(live)
+    if mat is None:
+        return None
+    dev = resolve_device(device)
+    got = uidvec.merge_many(torch.from_numpy(mat).to(dev))
+    return uidvec.to_numpy(got).astype(np.uint64)
+
+
+def intersect_many_device(parts: Sequence[np.ndarray],
+                          device: str | torch.device | None = None
+                          ) -> Optional[np.ndarray]:
+    """k-way intersection in one device call (uidvec.intersect_many's
+    co-sort fold) on `device` (the card unless told otherwise). None ->
+    host fold."""
+    if not len(parts):
+        return _EMPTY
+    if any(not len(p) for p in parts):
+        return _EMPTY
+    if len(parts) == 1:
+        return np.asarray(parts[0])
+    # smallest-first keeps the accumulator (row 0's static length) tight
+    ordered = sorted(parts, key=len)
+    mat = _device_matrix(ordered)
+    if mat is None:
+        return None
+    dev = resolve_device(device)
+    got = uidvec.intersect_many(torch.from_numpy(mat).to(dev))
+    return uidvec.to_numpy(got).astype(np.uint64)
+
+
+# ======================================================================
+# Set algebra on COMPRESSED operands (ops/codec.CompressedPack).
+#
+# The dense entry points above decode-then-intersect; these keep the
+# "SIMD Compression and the Intersection of Sorted Integers" shape
+# (PAPERS.md): block descriptors are compared first (no key overlap =>
+# the block is NEVER decoded), bitmap blocks AND/OR as whole uint64
+# word vectors, PACKED-vs-BITMAP probes test bits without decoding the
+# bitmap, and only blocks that survive skipping densify into the
+# result.  All results are fresh sorted-unique uint64 vectors (the
+# repo-wide invariant); `scratch` is an ops/codec.DecodeScratch whose
+# views never escape a call.
+# ======================================================================
+
+
+def _pack_keys_intersect(packs) -> np.ndarray:
+    """Surviving block keys: k-way intersection of the (sorted-unique)
+    per-pack key vectors — the descriptor-skipping pass."""
+    keys = packs[0].keys
+    for p in packs[1:]:
+        if not len(keys):
+            return keys
+        keys = intersect_pair(keys, p.keys)
+    return keys
+
+
+def _uids_of(key: int, lows: np.ndarray) -> np.ndarray:
+    return (np.uint64(key) << np.uint64(16)) | lows.astype(np.uint64)
+
+
+def intersect_packs(packs, scratch=None, device=False) -> np.ndarray:
+    """k-way intersection over compressed packs.  Per surviving key the
+    SMALLEST block decodes once and the others answer membership in
+    compressed form (bitmap bit test / run interval probe); all-bitmap
+    keys batch into one vectorized word-AND.
+
+    `device` False (the default) folds that AND on the host. Any other
+    value names the device of `bitmap_and_device` (True or None: the
+    card, `cuda:0`; else a torch device or device string), which takes
+    the AND whenever at least _DEVICE_MIN_BLOCKS keys are all-bitmap."""
+    if not len(packs):
+        return _EMPTY
+    if any(p.n == 0 for p in packs):
+        return _EMPTY
+    if len(packs) == 1:
+        return packs[0].densify()
+    packs = sorted(packs, key=lambda p: p.n)
+    keys = _pack_keys_intersect(packs)
+    if not len(keys):
+        return _EMPTY
+    parts: list[np.ndarray] = []
+    bi_per = [np.searchsorted(p.keys, keys) for p in packs]
+    # keys where EVERY pack's block is a singleton: one vectorized
+    # base compare instead of a per-key walk (the ultra-sparse regime
+    # — descriptor skipping already pruned everything else)
+    all_sing = np.ones(len(keys), bool)
+    for p, bis in zip(packs, bi_per):
+        all_sing &= p.counts[bis] == 1
+    si = np.flatnonzero(all_sing)
+    if len(si):
+        base_mat = np.stack([p.bases[bis[si]]
+                             for p, bis in zip(packs, bi_per)])
+        eq = (base_mat == base_mat[0]).all(axis=0)
+        if eq.any():
+            parts.append((keys[si][eq] << np.uint64(16))
+                         | base_mat[0][eq].astype(np.uint64))
+    # batch the all-bitmap keys into one word-AND (host or device)
+    all_bitmap = np.ones(len(keys), bool)
+    for p, bis in zip(packs, bi_per):
+        all_bitmap &= p.forms[bis] == _codec.FORM_BITMAP
+    all_bitmap &= ~all_sing
+    bm_idx = np.flatnonzero(all_bitmap)
+    if len(bm_idx):
+        mats = []
+        for p, bis in zip(packs, bi_per):
+            rows = np.stack([p.block_words(int(bis[i]))
+                             for i in bm_idx])
+            mats.append(rows)
+        if device is not False and len(bm_idx) >= _DEVICE_MIN_BLOCKS:
+            anded = bitmap_and_device(
+                mats, None if device is True else device)
+        else:
+            anded = mats[0]
+            for m in mats[1:]:
+                anded = anded & m
+        bits = np.unpackbits(anded.view(np.uint8), axis=1,
+                             bitorder="little")
+        for row, i in enumerate(bm_idx):
+            lows = np.flatnonzero(bits[row]).astype(np.uint32)
+            if len(lows):
+                parts.append(_uids_of(int(keys[i]), lows))
+    for i in np.flatnonzero(~all_bitmap & ~all_sing):
+        blocks = [(p, int(bis[i])) for p, bis in zip(packs, bi_per)]
+        # decode the smallest block once; everyone else answers
+        # membership on the compressed form
+        blocks.sort(key=lambda pb: int(pb[0].counts[pb[1]]))
+        p0, b0 = blocks[0]
+        lows = p0.block_lows(b0, scratch=scratch)
+        for p, bi in blocks[1:]:
+            if not len(lows):
+                break
+            lows = lows[p.block_member(bi, lows, scratch=scratch)]
+        if len(lows):
+            parts.append(_uids_of(int(keys[i]), lows))
+    if not parts:
+        return _EMPTY
+    out = np.concatenate(parts)
+    out.sort()  # keys interleave between the bitmap and mixed passes
+    return out
+
+
+def _keys_member(keys: np.ndarray, sset: np.ndarray) -> np.ndarray:
+    """Bool mask: which (sorted-unique) keys appear in sorted sset."""
+    if not len(sset) or not len(keys):
+        return np.zeros(len(keys), bool)
+    i = np.searchsorted(sset, keys)
+    np.minimum(i, len(sset) - 1, out=i)
+    return sset[i] == keys
+
+
+def _singleton_uids(p, mask: np.ndarray) -> np.ndarray:
+    return (p.keys[mask] << np.uint64(16)) \
+        | p.bases[mask].astype(np.uint64)
+
+
+def union_packs(packs, scratch=None) -> np.ndarray:
+    """k-way union over compressed packs: singleton blocks pool into
+    one vectorized unique (the ultra-sparse regime never walks
+    per-key python), uncontested blocks decode straight into the
+    result, contested dense keys OR as bitmap words."""
+    packs = [p for p in packs if p.n]
+    if not packs:
+        return _EMPTY
+    if len(packs) == 1:
+        return packs[0].densify()
+    all_keys, kcounts = np.unique(
+        np.concatenate([p.keys for p in packs]), return_counts=True)
+    contested = all_keys[kcounts > 1]
+    nonsing = [~p.singleton_mask() for p in packs]
+    nonsing_keys = np.unique(np.concatenate(
+        [p.keys[m] for p, m in zip(packs, nonsing)])) \
+        if any(m.any() for m in nonsing) else _EMPTY
+    # per-key python only where a contested key holds a real block
+    loop_keys = intersect_pair(contested, nonsing_keys) \
+        if len(contested) and len(nonsing_keys) else _EMPTY
+    parts: list[np.ndarray] = []
+    sing_pool: list[np.ndarray] = []
+    for p, nsm in zip(packs, nonsing):
+        in_loop = _keys_member(p.keys, loop_keys)
+        free_sing = ~nsm & ~in_loop
+        if free_sing.any():
+            sing_pool.append(_singleton_uids(p, free_sing))
+        for bi in np.flatnonzero(nsm & ~in_loop).tolist():
+            parts.append(_uids_of(int(p.keys[bi]),
+                                  p.block_lows(bi, scratch=scratch)))
+    for key in loop_keys.tolist():
+        blocks = [(p, p.block_of(key)) for p in packs]
+        blocks = [(p, bi) for p, bi in blocks if bi >= 0]
+        if any(int(p.forms[bi]) == _codec.FORM_BITMAP
+               for p, bi in blocks) \
+                or sum(int(p.counts[bi]) for p, bi in blocks) > 4096:
+            words = _take(scratch, _codec.BITMAP_WORDS)
+            words[:] = 0
+            for p, bi in blocks:
+                words |= p.block_bitmap(bi)
+            bits = np.unpackbits(words.view(np.uint8),
+                                 bitorder="little")
+            lows = np.flatnonzero(bits).astype(np.uint32)
+        else:
+            lows = np.unique(np.concatenate(
+                [p.block_lows(bi, scratch=scratch)
+                 for p, bi in blocks]))
+        parts.append(_uids_of(key, lows))
+    if sing_pool:
+        # contested all-singleton keys repeat across packs: ONE unique
+        parts.append(np.unique(np.concatenate(sing_pool)))
+    if not parts:
+        return _EMPTY
+    out = np.concatenate(parts)
+    out.sort()  # parts are key-disjoint but interleave in key order
+    return out
+
+
+def difference_pack(a, b, scratch=None) -> np.ndarray:
+    """a \\ b over compressed packs: keys absent from b decode whole
+    (descriptor skipping), singleton-vs-singleton keys compare bases
+    vectorized, the rest mask by compressed membership."""
+    if a.n == 0:
+        return _EMPTY
+    if b.n == 0:
+        return a.densify()
+    parts: list[np.ndarray] = []
+    b_at = np.searchsorted(b.keys, a.keys)
+    np.minimum(b_at, max(len(b.keys) - 1, 0), out=b_at)
+    shared = (b.keys[b_at] == a.keys) if len(b.keys) else \
+        np.zeros(len(a.keys), bool)
+    sing_a = a.singleton_mask()
+    keep = sing_a & ~shared  # singleton, key not in b: survives whole
+    b_sing = b.counts[b_at] == 1
+    both_sing = sing_a & shared & b_sing
+    if both_sing.any():
+        keep = keep | (both_sing
+                       & (a.bases != b.bases[b_at]))
+    if keep.any():
+        parts.append(_singleton_uids(a, keep))
+    for i in np.flatnonzero(sing_a & shared & ~b_sing).tolist():
+        low = np.asarray([a.bases[i]], np.uint32)
+        if not b.block_member(int(b_at[i]), low, scratch=scratch)[0]:
+            parts.append(_uids_of(int(a.keys[i]), low))
+    for i in np.flatnonzero(~sing_a).tolist():
+        lows = a.block_lows(i, scratch=scratch)
+        if shared[i]:
+            lows = lows[~b.block_member(int(b_at[i]), lows,
+                                        scratch=scratch)]
+        if len(lows):
+            parts.append(_uids_of(int(a.keys[i]), lows))
+    if not parts:
+        return _EMPTY
+    out = np.concatenate(parts)
+    out.sort()
+    return out
+
+
+def count_filter_packs(packs, need: int, scratch=None) -> np.ndarray:
+    """Uids in >= `need` packs (the match() q-gram bound) without
+    densifying: keys held by < need packs skip entirely; all-singleton
+    keys count in one vectorized unique; the rest accumulate per-low
+    hit counts in one 2^16 counter — bitmap blocks add their unpacked
+    bits, runs add slice-wise, PACKED lows scatter-add."""
+    k = len(packs)
+    if need > k:
+        return _EMPTY
+    if need <= 1:
+        return union_packs(packs, scratch=scratch)
+    packs = [p for p in packs if p.n]
+    if len(packs) < need:
+        return _EMPTY
+    all_keys, kcounts = np.unique(
+        np.concatenate([p.keys for p in packs]), return_counts=True)
+    live = all_keys[kcounts >= need]
+    if not len(live):
+        return _EMPTY
+    nonsing = [~p.singleton_mask() for p in packs]
+    nonsing_keys = np.unique(np.concatenate(
+        [p.keys[m] for p, m in zip(packs, nonsing)])) \
+        if any(m.any() for m in nonsing) else _EMPTY
+    loop_keys = intersect_pair(live, nonsing_keys) \
+        if len(nonsing_keys) else _EMPTY
+    parts: list[np.ndarray] = []
+    # all-singleton live keys: pooled unique-with-counts
+    pool = []
+    for p in packs:
+        m = p.singleton_mask() & _keys_member(p.keys, live) \
+            & ~_keys_member(p.keys, loop_keys)
+        if m.any():
+            pool.append(_singleton_uids(p, m))
+    if pool:
+        uids, ucounts = np.unique(np.concatenate(pool),
+                                  return_counts=True)
+        hit = uids[ucounts >= need]
+        if len(hit):
+            parts.append(hit)
+    counts = _take(scratch, _codec.BLOCK_SPAN, np.uint16)
+    for key in loop_keys.tolist():
+        counts[:] = 0
+        for p in packs:
+            bi = p.block_of(key)
+            if bi < 0:
+                continue
+            form = int(p.forms[bi])
+            if form == _codec.FORM_BITMAP:
+                counts += np.unpackbits(p.block_payload(bi),
+                                        bitorder="little")
+            elif form == _codec.FORM_RUN:
+                runs = p.block_runs(bi)
+                for s, lm1 in runs.tolist():
+                    counts[s: s + lm1 + 1] += 1
+            else:
+                counts[p.block_lows(bi, scratch=scratch)] += 1
+        lows = np.flatnonzero(counts >= need).astype(np.uint32)
+        if len(lows):
+            parts.append(_uids_of(key, lows))
+    if not parts:
+        return _EMPTY
+    out = np.concatenate(parts)
+    out.sort()
+    return out
+
+
+def _take(scratch, n, dtype=np.uint64):
+    if scratch is None:
+        return np.empty(n, dtype)
+    return scratch.take(n, dtype)
+
+
+def bitmap_and_device(mats, device: str | torch.device | None = None
+                      ) -> np.ndarray:
+    """k-way AND of stacked bitmap word matrices ([B, 1024] uint64) in
+    ONE launch of the CUDA kernel `kernels.bitmap_and` on `device` (the
+    card unless told otherwise; on a CPU device its plain version). The
+    words cross as int64 with the same bits. A failed build or launch
+    raises: there is no quiet host fold."""
+    dev = resolve_device(device)
+    stack = np.stack([np.ascontiguousarray(m, np.uint64) for m in mats])
+    got = kernels.bitmap_and(torch.from_numpy(stack.view(np.int64)).to(dev))
+    return got.cpu().numpy().view(np.uint64)
+
+
+# -- mixed operands: dense vectors alongside compressed packs ----------
+#
+# The hybrid token index (storage/tablet.CompressedTokenIndex) hands
+# out dense slices for its small-list tail and CompressedPacks for the
+# long lists; these entry points take either form per operand, keeping
+# the dense side on the vectorized numpy kernels and the compressed
+# side on block-descriptor skipping.  The dense-vs-pack boundary runs
+# membership probes INTO the compressed side (the reference's lin/bin
+# strategy pick, algo/uidlist.go:151, applied at the form boundary).
+
+
+def _op_len(op) -> int:
+    return len(op) if isinstance(op, np.ndarray) else op.n
+
+
+def pack_member(p, uids: np.ndarray, scratch=None) -> np.ndarray:
+    """Bool mask: which sorted uids are in pack `p` — block-descriptor
+    skipping first (uids in absent blocks never touch a payload)."""
+    if not len(uids) or p.n == 0:
+        return np.zeros(len(uids), bool)
+    uids = np.asarray(uids, np.uint64)
+    keys = uids >> np.uint64(16)
+    bi = np.searchsorted(p.keys, keys)
+    np.minimum(bi, max(len(p.keys) - 1, 0), out=bi)
+    hit = p.keys[bi] == keys
+    out = np.zeros(len(uids), bool)
+    if not hit.any():
+        return out
+    lows = (uids & np.uint64(0xFFFF)).astype(np.uint32)
+    for b in np.unique(bi[hit]).tolist():
+        rows = hit & (bi == b)
+        out[rows] = p.block_member(b, lows[rows], scratch=scratch)
+    return out
+
+
+def union_mixed(ops, scratch=None) -> np.ndarray:
+    """k-way union over mixed operands: dense slices ride the one
+    concat + one sort.  Packs pick their own regime: dense blocks
+    (bitmap territory) OR as word vectors compressed-side first;
+    sparse packs decode through the scratch block cache into the same
+    single vectorized unique — per-key python on a mostly-packed
+    sparse union would cost more than the decode it avoids."""
+    dense = [o for o in ops if isinstance(o, np.ndarray)]
+    packs = [o for o in ops if not isinstance(o, np.ndarray)]
+    if packs:
+        blocks = sum(len(p.keys) for p in packs)
+        if blocks and sum(p.n for p in packs) / blocks >= 4096:
+            dense.append(union_packs(packs, scratch=scratch))
+        else:
+            dense.extend(p.densify(scratch=scratch) for p in packs)
+    return union_many(dense)
+
+
+def intersect_mixed(ops, scratch=None, device=False) -> np.ndarray:
+    """k-way intersection over mixed operands: the dense sides
+    intersect smallest-first, then the (small) survivor vector probes
+    each pack's membership in compressed form — blocks the survivors
+    never land in are skipped by descriptor compare alone. `device` as
+    for intersect_packs (all-pack operands only)."""
+    if not len(ops):
+        return _EMPTY
+    if any(_op_len(o) == 0 for o in ops):
+        return _EMPTY
+    dense = [o for o in ops if isinstance(o, np.ndarray)]
+    packs = [o for o in ops if not isinstance(o, np.ndarray)]
+    if not packs:
+        return intersect_many(dense)
+    if not dense:
+        return intersect_packs(packs, scratch=scratch, device=device)
+    acc = intersect_many(dense) if len(dense) > 1 \
+        else np.asarray(dense[0])
+    for p in sorted(packs, key=lambda q: q.n):
+        if not len(acc):
+            return _EMPTY
+        acc = acc[pack_member(p, acc, scratch=scratch)]
+    return acc
+
+
+def count_filter_mixed(ops, need: int, scratch=None) -> np.ndarray:
+    """Uids in >= `need` of the mixed operands — setops.count_filter's
+    pigeonhole shape with compressed membership probes: candidates
+    come from the k-need+1 SMALLEST operands (densified only if
+    packed), the larger operands answer by probe — dense via
+    searchsorted, packs via block-skipping pack_member."""
+    k = len(ops)
+    if need > k:
+        return _EMPTY
+    if need <= 1:
+        return union_mixed(ops, scratch=scratch)
+    ops = [o for o in ops if _op_len(o)]
+    if len(ops) < need:
+        return _EMPTY
+    if all(not isinstance(o, np.ndarray) for o in ops):
+        return count_filter_packs(ops, need, scratch=scratch)
+    ordered = sorted(ops, key=_op_len)
+    m = len(ops) - need + 1
+    small = [o if isinstance(o, np.ndarray) else o.densify()
+             for o in ordered[:m]]
+    cand, counts = np.unique(np.concatenate(small),
+                             return_counts=True) \
+        if len(small) > 1 else (np.asarray(small[0]),
+                                np.ones(len(small[0]), np.int64))
+    rest = ordered[m:]
+    for j, o in enumerate(rest):
+        if isinstance(o, np.ndarray):
+            lp = len(o)
+            idx = np.searchsorted(o, cand)
+            np.minimum(idx, lp - 1, out=idx)
+            counts += o[idx] == cand
+        else:
+            counts += pack_member(o, cand, scratch=scratch)
+        floor = need - (len(rest) - j - 1)
+        if floor > 0:
+            keep = counts >= floor
+            if not keep.all():
+                cand, counts = cand[keep], counts[keep]
+                if not len(cand):
+                    return _EMPTY
+    return cand[counts >= need]

@@ -273,3 +273,85 @@ def test_build_all_failure_raises_and_leaves_nothing(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build_all(["bucket_or", "score"])
     assert not list(tmp_path.glob("*.so"))
+
+
+# -- bitmap_and (csrc/bitmap_and.cu) ------------------------------------------
+
+
+def bitmap_words(k, b, seed, w=1024):
+    """k random uint64 word matrices [k, b, w] and the same bits as an
+    int64 tensor."""
+    rng = np.random.default_rng(seed)
+    mats = rng.integers(0, 2**64, (k, b, w), dtype=np.uint64)
+    return mats, torch.from_numpy(mats.view(np.int64).copy())
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+@pytest.mark.parametrize("b", [1, 7, 8, 9])
+def test_bitmap_and_reference_matches_pallas_interpret(k, b):
+    """The k-way AND against the TPU kernel folded pairwise over the
+    uint32 lanes, as the reference's bitmap_and_device does, and against
+    numpy's &."""
+    from dgraph_tpu.ops.pallas_kernels import bitmap_and_pallas
+
+    mats, mt = bitmap_words(k, b, seed=k * 100 + b)
+    got = kernels.bitmap_and_reference(mt)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (b, 1024)
+    acc = mats[0].view(np.uint32)
+    for m in mats[1:]:
+        acc = np.asarray(bitmap_and_pallas(jnp.asarray(acc),
+                                           jnp.asarray(m.view(np.uint32)),
+                                           interpret=True))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  acc.view(np.uint64))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  np.bitwise_and.reduce(mats, axis=0))
+
+
+@pytest.mark.parametrize("k,b,w", [(1, 3, 1024), (2, 5, 5), (5, 1, 1024),
+                                   (3, 4096, 1024)])
+def test_bitmap_and_wrapper_on_cpu_runs_plain_version_without_launch(k, b, w):
+    mats, mt = bitmap_words(k, b, seed=k + b + w, w=w)
+    before = kernels.bitmap_and.launches
+    got = kernels.bitmap_and(mt)
+    assert kernels.bitmap_and.launches == before
+    assert torch.equal(got, kernels.bitmap_and_reference(mt))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  np.bitwise_and.reduce(mats, axis=0))
+    # the plain version leaves its inputs as they were
+    np.testing.assert_array_equal(mt.numpy().view(np.uint64), mats)
+
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "empty_k",
+                                  "non_contiguous", "device"])
+def test_bitmap_and_wrapper_rejects(case):
+    mats = torch.zeros((3, 4, 1024), dtype=torch.int64)
+    if case == "dtype":
+        mats = mats.to(torch.int32)
+    elif case == "rank":
+        mats = mats[0]
+    elif case == "empty_k":
+        mats = mats[:0]
+    elif case == "non_contiguous":
+        mats = torch.zeros((3, 1024, 4), dtype=torch.int64).transpose(1, 2)
+    elif case == "device":
+        mats = mats.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        kernels.bitmap_and(mats)
+
+
+def test_bitmap_and_source_builds_beside_the_others():
+    assert (_build.CSRC_DIR / "bitmap_and.cu").exists()
+    assert _build.library_path("bitmap_and").parent == _build.BUILD_DIR
+    src = (_build.CSRC_DIR / "bitmap_and.cu").read_text()
+    assert 'extern "C" int bitmap_and_launch(' in src
+
+
+def test_bitmap_and_build_failure_raises(monkeypatch, tmp_path):
+    """On a CUDA tensor a failed build raises; nothing falls back to the
+    plain version."""
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.load_bitmap_library()
