@@ -31,8 +31,14 @@ The vector search plane (similar_to), at bench_vectors.py's accelerator
 regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
 
 8. score_dot and score_int8 against their plain versions on the card,
-   element by element within the reordering bound, over b {1, 3, 256},
-   d {16, 100, 128}, n {1, 777, 65,536, 1,000,064} and int8 list slices;
+   element by element within the reordering bound, over b {1, 3, 256,
+   257} (257: two query tiles), d {16, 100, 128} x n {1, 777, 65,536,
+   1,000,064}, d 37 (rows off 16 bytes) and d 1024 (depth segments) at
+   n {777, 65,536}, corpora that start off 16-byte alignment, and int8
+   list slices; score_int8_lists against its plain version on
+   hand-built tables (empty, a one-row list, m = 1, m = M_TILE + 1,
+   lists at both ends of the code block, a mixed batch), and an entry
+   of M_TILE + 1 queries refused;
 9. the exact and two-stage tiers of `knn.topk_device` over a
    device-resident block: sustained QPS with score_dot's launches set to
    0 just before and asserted after (one per call); the exact top-10
@@ -42,10 +48,12 @@ regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
    torch.matmul and its bound;
 10. the quantized IVF tier: `ivf.build` (assignment on the card), then
    `ivf.search` at the calibrated nprobe and every frontier budget, each
-   search's score_int8 launches asserted equal to its distinct probed
-   lists; the answer against the plain version, recall@10 >= 0.95;
-   score_int8 over one batch's launches beside its plain version and
-   bound;
+   search asserted to launch score_int8_lists once, over a table whose
+   distinct lists are the search's distinct probed lists; the answer
+   against the plain version, recall@10 >= 0.95; the one-launch stage
+   of one calibrated batch, device time by CUDA events behind a fill,
+   beside its plain version and bound, and its scores against the plain
+   version's, score by score within phase 8's bound;
 11. torch.profiler over one exact and one quantized batch;
 12. the 100k regime, beside BENCH_VECTORS.json's record (informational).
 
@@ -116,6 +124,13 @@ SMALL_N = 100_000                  # bench_vectors.py always runs it
 # corpus rows of the score kernels' checks; 1,000,064 is the 1M corpus
 # padded to the two-stage bucket
 SCORE_CHECK_ROWS = (1, 777, 65_536, 1_000_064)
+# (d, n) of the checks: d 37 has rows off 16 bytes, d 1024 takes the
+# query tile in depth segments
+SCORE_CHECK_SHAPES = [(d, n) for d in (16, 100, 128)
+                      for n in SCORE_CHECK_ROWS] + \
+    [(d, n) for d in (37, 1024) for n in (777, 65_536)]
+# 257 queries take two query tiles of score_dot
+SCORE_CHECK_BATCHES = (1, 3, 256, 257)
 # BENCH_VECTORS.json's 100k regime (a CPU run of the JAX package, same
 # generator seeds): informational only
 BENCH_VECTORS_100K = {"nlist": 256, "nprobe": 4, "sampleRecall": 1.0,
@@ -124,6 +139,14 @@ BENCH_VECTORS_100K = {"nlist": 256, "nprobe": 4, "sampleRecall": 1.0,
 # timed intersect_packs calls of setops-and-67M on each route
 SET_RUNS = 5
 AND_RUNS = 3
+# the quantized tier's approximate stage of one calibrated batch when it
+# was one score_int8 launch a probed list (444 launches, CUDA events
+# around the loop; NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table)
+PER_LIST_LOOP_MS = 7.423
+# fills of a 512 MiB buffer queued before each cold timing: they flush
+# the L2 and outlast the host work of the slowest timed wrapper
+# (score_int8_lists builds and pins its table before it launches)
+COLD_FILLS = 4
 
 
 def log(msg: str) -> None:
@@ -459,6 +482,21 @@ def score_bound_ms(calls) -> tuple[float, str]:
     return max(by_s, ops_s) * 1e3, "bytes" if by_s >= ops_s else "operations"
 
 
+def lists_bound_ms(codes, queries, table) -> tuple[float, str]:
+    """Least time of a list table's products on the card: each probed
+    list's code rows and scales read once, the queries once, the table
+    and each slot's query index and term once, each score written once,
+    against 2 * d float32 operations a score; (ms, what bounds it)."""
+    d = codes.shape[1]
+    s, ln, _, m, _ = table.T
+    _, first = np.unique(s, return_index=True)
+    scores = int((m * ln).sum())
+    nbytes = int(ln[first].sum()) * (d + 4) + queries.numel() * 4 + \
+        table.nbytes + 12 * int(m.sum()) + 4 * scores
+    by_s, ops_s = nbytes / HBM_BYTES_PER_S, 2.0 * scores * d / FP32_FLOPS
+    return max(by_s, ops_s) * 1e3, "bytes" if by_s >= ops_s else "operations"
+
+
 def check_score(fn, plain, rows, q, label: str) -> tuple[float, float]:
     """Kernel against plain version, element by element, within the
     reordering bound d * 2^-24 * sum_k |q_k c_k| (both sum the same
@@ -485,8 +523,9 @@ def check_score(fn, plain, rows, q, label: str) -> tuple[float, float]:
 
 def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
     """Phase 8: score_dot and score_int8 against their plain versions on
-    every tested shape, and score_int8 over list-like slices of one
-    resident code block. Returns each kernel's worst absolute error."""
+    every tested shape, score_int8 over list-like slices of one resident
+    code block, and score_int8_lists on hand-built tables. Returns each
+    kernel's worst absolute error."""
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"dot": (0.0, 0.0), "int8": (0.0, 0.0)}
     shapes = 0
@@ -497,19 +536,28 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
         worst[key] = (max(worst[key][0], e), max(worst[key][1], r))
         shapes += 1
 
-    for d in (16, 100, 128):
-        for n in SCORE_CHECK_ROWS:
-            corpus = torch.randn((n, d), device=dev, generator=gen)
-            codes = torch.randint(-127, 128, (n, d), device=dev,
-                                  generator=gen, dtype=torch.int8)
-            for b in (1, 3, 256):
-                q = torch.randn((b, d), device=dev, generator=gen)
-                check("dot", kernels.score_dot, kernels.score_dot_reference,
-                      corpus, q, f"score_dot b={b} n={n} d={d}")
-                check("int8", kernels.score_int8,
-                      kernels.score_int8_reference, codes, q,
-                      f"score_int8 b={b} n={n} d={d}")
-            del corpus, codes
+    def both(corpus, codes, batches, label):
+        for b in batches:
+            q = torch.randn((b, corpus.shape[1]), device=dev, generator=gen)
+            check("dot", kernels.score_dot, kernels.score_dot_reference,
+                  corpus, q, f"score_dot b={b} {label}")
+            check("int8", kernels.score_int8, kernels.score_int8_reference,
+                  codes, q, f"score_int8 b={b} {label}")
+
+    for d, n in SCORE_CHECK_SHAPES:
+        corpus = torch.randn((n, d), device=dev, generator=gen)
+        codes = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
+                              dtype=torch.int8)
+        both(corpus, codes, SCORE_CHECK_BATCHES, f"n={n} d={d}")
+        del corpus, codes
+    # corpora that start off 16-byte alignment (a slice's offset)
+    n, d = 65_536, 128
+    flat = torch.randn(n * d + 1, device=dev, generator=gen)
+    flat8 = torch.randint(-127, 128, (n * d + 3,), device=dev, generator=gen,
+                          dtype=torch.int8)
+    both(flat[1:].view(n, d), flat8[3:].view(n, d), (3, 256),
+         f"n={n} d={d} off 16-byte alignment")
+    del flat, flat8
     # list-like slices: contiguous row ranges of one resident code block
     codes = torch.randint(-127, 128, (200_000, 128), device=dev,
                           generator=gen, dtype=torch.int8)
@@ -520,12 +568,106 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
             check("int8", kernels.score_int8, kernels.score_int8_reference,
                   codes[s:s + ln], q, f"score_int8 rows [{s}:{s + ln}] "
                   f"b={b}")
-    log(f"kernel check: score_dot and score_int8 within the reordering "
-        f"bound of their plain versions on {shapes} shapes (b 1/3/256, "
-        f"d 16/100/128, n 1..1,000,064, int8 list slices of 1-5,000 "
-        f"rows); worst error/bound: score_dot {worst['dot'][1]:.4g}, "
-        f"score_int8 {worst['int8'][1]:.4g} | {card}")
+    # score_int8_lists on hand-built tables over the same block
+    scales = torch.rand(200_000, device=dev, generator=gen) / 127
+    q = torch.randn((40, 128), device=dev, generator=gen)
+    rng = np.random.default_rng(8)
+    starts = np.sort(rng.choice(200_000, 121, replace=False))
+    mixed = [(int(starts[i]), int(starts[i]) + int(rng.integers(1, 3_000)),
+              sorted(rng.choice(40, int(rng.integers(1, 41)),
+                                replace=False).tolist()))
+             for i in range(120)]
+    mixed = [(s, min(e, int(starts[i + 1])), qis)
+             for i, (s, e, qis) in enumerate(mixed)]
+    m_big = kernels.lists_limits(128)[0] + 1
+    tables = {"empty table": [], "one-row list": [(5, 6, [3])],
+              "m = 1": [(1_000, 3_250, [7])],
+              f"m = M_TILE + 1 = {m_big}": [(10_000, 12_000,
+                                             list(range(m_big)))],
+              "both ends of the block": [(0, 1_500, [0, 5, 9]),
+                                         (198_500, 200_000, [1, 2])],
+              "120 lists, m 1-40": mixed}
+    for label, slices in tables.items():
+        e, r = check_lists(kernels, codes, q, scales, slices, rng,
+                           f"score_int8_lists {label}")
+        worst["int8"] = (max(worst["int8"][0], e), max(worst["int8"][1], r))
+        shapes += 1
+    # an entry of more queries than the kernel holds is refused
+    over, _, total = kernels.int8_lists_table(tables[
+        f"m = M_TILE + 1 = {m_big}"])
+    try:
+        kernels.score_int8_lists(codes, q, over,
+                                 torch.empty(total, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"score_int8_lists took an entry of {m_big} "
+                             f"queries")
+    log(f"kernel check: score_dot, score_int8 and score_int8_lists within "
+        f"the reordering bound of their plain versions on {shapes} shapes "
+        f"(b 1/3/256/257, d 16/37/100/128/1024, n 1..1,000,064, corpora off "
+        f"16-byte alignment, int8 list slices of 1-5,000 rows, "
+        f"{len(tables)} list tables); worst error/bound: score_dot "
+        f"{worst['dot'][1]:.4g}, score_int8 {worst['int8'][1]:.4g} | {card}")
     return worst["dot"][0], worst["int8"][0]
+
+
+def check_lists(kernels, codes, q, scales, slices, rng, label: str
+                ) -> tuple[float, float]:
+    """score_int8_lists against its plain version on the table of
+    `slices` ((start, end, query ids) a list), with random terms, written
+    into a slice of a larger buffer whose neighbours must stay untouched;
+    one launch unless the table is empty, then none; within
+    `lists_bound`. Returns (max abs error, worst error / bound)."""
+    table, qidx, total = kernels.int8_lists_table(
+        slices, kernels.lists_m_tile(codes.shape[1], codes.device))
+    cterm = rng.standard_normal(len(qidx)).astype(np.float32)
+    kw = dict(qidx=qidx, scales=scales, cterm=cterm)
+    big = torch.full((total + 2,), 7.0, device=q.device)
+    before = kernels.score_int8.launches
+    kernels.score_int8_lists(codes, q, table, big[1:total + 1], **kw)
+    launched = kernels.score_int8.launches - before
+    want = kernels.score_int8_lists_reference(
+        codes, q, table, torch.empty(total, device=q.device), **kw)
+    torch.cuda.synchronize()
+    if launched != (1 if total else 0) or float(big[0]) != 7.0 or \
+            float(big[-1]) != 7.0:
+        raise AssertionError(f"{label}: {launched} launches, or a write "
+                             f"outside its scores")
+    return lists_within_bound(codes, q, table, big[1:total + 1], want, kw,
+                              label)
+
+
+def lists_within_bound(codes, q, table, got, want, kw, label: str
+                       ) -> tuple[float, float]:
+    """A list table's kernel scores `got` against the plain version's
+    `want`, score by score, within the dots' reordering bound times
+    |scale|, plus one rounding of the product and one of the sum on each
+    side; raises outside it. `kw` holds the call's qidx, scales and
+    cterm. Returns (max abs error, worst error / bound)."""
+    total = got.numel()
+    if not total:
+        return 0.0, 0.0
+    qidx, scales, cterm = kw["qidx"], kw["scales"], kw["cterm"]
+    bound = torch.empty(total, dtype=torch.float64, device=q.device)
+    qi = torch.from_numpy(qidx).to(q.device)
+    ct = torch.from_numpy(cterm).to(q.device).double()
+    for s, ln, a, m, off in table.tolist():
+        qs = q.index_select(0, qi[a:a + m]).double()
+        rows = codes[s:s + ln].double()
+        sc = scales[s:s + ln].double()
+        dot = torch.matmul(qs, rows.T)
+        reorder = q.shape[1] * 2.0 ** -24 * torch.matmul(qs.abs(),
+                                                         rows.abs().T)
+        prod = (dot.abs() + reorder) * sc
+        bound[off:off + m * ln] = (reorder * sc + 2.0 ** -23 * (
+            2 * prod + 2 * (prod + ct[a:a + m, None].abs()))).reshape(-1)
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / bound.clamp_min(1e-30)).max())
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{label}: kernel != plain version within the "
+                             f"bound (worst ratio {ratio:.3g})")
+    return float(err.max()), ratio
 
 
 def same_topk(label: str, got, want, corpus, queries, metric: str,
@@ -665,63 +807,74 @@ def vector_plane(dev, card: str) -> list[dict]:
         return int(np.sum(ix.starts[li + 1] > ix.starts[li]))
 
     records = []
+    tables = []
+
+    def recorded_lists(codes, qs, table, out, **kw):
+        tables.append((codes, qs, table, out, kw))
+        return kernels.score_int8_lists(codes, qs, table, out, **kw)
 
     def counted(p, r):
         def fn(qs):
             kernels.score_int8.launches = 0
+            tables.clear()
             res = ivf.search(ix, corpus, qs, VEC_K, VEC_METRIC, nprobe=p,
                              rerank=r)
-            records.append((qs, p, kernels.score_int8.launches))
+            records.append((qs, p, kernels.score_int8.launches,
+                            [len(np.unique(t[2][:, 0])) for t in tables]))
             return res
         return fn
 
     int8_launches = 0
     quant = None
-    for p, r in [(ix.nprobe, None)] + bv.frontier_budgets(ix.nlist,
-                                                          k=VEC_K):
-        fn = counted(p, r)
-        fn(queries[:8])                                 # warm
-        times = bv.time_batches(fn, queries, bv.RUNS, dev)
-        gi, _ = fn(queries)
-        # each search launched score_int8 once per distinct probed list
-        per_search = []
-        for qs, pp, got in records:
-            want = lists_probed(qs, pp)
-            if got != want:
-                raise AssertionError(f"search at nprobe {pp} launched "
-                                     f"score_int8 {got} times for {want} "
-                                     f"distinct probed lists")
-            per_search.append(got)
-        records.clear()
-        int8_launches += sum(per_search)
-        rr = r or ivf.rerank_depth(VEC_K)
-        rec = bv.recall(answers["exact"], gi)
-        if r is None:
-            quant = (gi, rec)
-        log(f"quantized nprobe {p} rerank {rr}"
-            f"{' (calibrated)' if r is None else ''}: "
-            f"{bv.qps(VEC_BATCH, times):.1f} QPS sustained (s {times}), "
-            f"recall@{VEC_K} {rec}; score_int8 launches per search "
-            f"{per_search} = distinct probed lists | {card}")
+    ivf.score_int8_lists = recorded_lists
+    try:
+        for p, r in [(ix.nprobe, None)] + bv.frontier_budgets(ix.nlist,
+                                                              k=VEC_K):
+            fn = counted(p, r)
+            fn(queries[:8])                             # warm
+            times = bv.time_batches(fn, queries, bv.RUNS, dev)
+            gi, _ = fn(queries)
+            # each search launched score_int8_lists once, over a table of
+            # its distinct probed lists
+            per_search = []
+            for qs, pp, got, distinct in records:
+                want = lists_probed(qs, pp)
+                if got != 1 or distinct != [want]:
+                    raise AssertionError(
+                        f"search at nprobe {pp} launched score_int8 {got} "
+                        f"times over tables of {distinct} distinct lists; "
+                        f"expected once over {want}")
+                per_search.append(got)
+            records.clear()
+            int8_launches += sum(per_search)
+            rr = r or ivf.rerank_depth(VEC_K)
+            rec = bv.recall(answers["exact"], gi)
+            if r is None:
+                quant = (gi, rec)
+            log(f"quantized nprobe {p} rerank {rr}"
+                f"{' (calibrated)' if r is None else ''}: "
+                f"{bv.qps(VEC_BATCH, times):.1f} QPS sustained (s {times}), "
+                f"recall@{VEC_K} {rec}; score_int8 launched once in each of "
+                f"{len(per_search)} searches, over "
+                f"{want} distinct lists in the last | {card}")
+        # one calibrated batch's stage, kept for the timings below
+        tables.clear()
+        ivf.search(ix, corpus, queries, VEC_K, VEC_METRIC)
+        stage = tables[0]
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
     peak_quant = torch.cuda.max_memory_allocated(dev) / 2**30
     if quant[1] < bv.RECALL_FLOOR:
         raise AssertionError(f"quantized recall@{VEC_K} {quant[1]} < "
                              f"{bv.RECALL_FLOOR}")
 
     # answers: the same search with the plain version as its scorer
-    calls = []
-
-    def recorded_plain(codes, q, out=None):
-        calls.append((codes, q))
-        res = kernels.score_int8_reference(codes, q)
-        return res if out is None else out.copy_(res)
-
-    ivf.score_int8 = recorded_plain
+    ivf.score_int8_lists = kernels.score_int8_lists_reference
     try:
         pi, _ = ivf.search(ix, corpus, queries, VEC_K, VEC_METRIC,
                            nprobe=ix.nprobe)
     finally:
-        ivf.score_int8 = kernels.score_int8
+        ivf.score_int8_lists = kernels.score_int8_lists
     qflips = same_topk("quantized vs plain", quant[0], pi, corpus,
                        queries, VEC_METRIC, tol)
     log(f"answers: quantized top-{VEC_K} at the calibrated budget = plain "
@@ -729,30 +882,35 @@ def vector_plane(dev, card: str) -> list[dict]:
         f"(>= {bv.RECALL_FLOOR}); peak device memory {peak_quant:.2f} GiB "
         f"| {card}")
 
-    # score_int8 over one calibrated batch's launches
-    outs = [torch.empty((q.shape[0], c.shape[0]), device=dev)
-            for c, q in calls]
-
-    def kernel_pass():
-        for (c, q), o in zip(calls, outs):
-            kernels.score_int8(c, q, out=o)
-
-    def plain_pass():
-        for c, q in calls:
-            kernels.score_int8_reference(c, q)
-
-    int8_ms = cuda_ms(kernel_pass, 10)
-    int8_plain_ms = cuda_ms(plain_pass, 10)
-    for (c, q), o in zip(calls, outs):
-        err_int8 = max(err_int8, float(
-            (o - kernels.score_int8_reference(c, q)).abs().max()))
-    int8_bound, int8_by = score_bound_ms(calls)
-    log(f"score_int8 over one calibrated batch ({len(calls)} launches, "
-        f"{sum(q.shape[0] * c.shape[0] for c, q in calls)} scores): kernel "
-        f"{int8_ms:.4f} ms, plain {int8_plain_ms:.4f} ms, bound "
-        f"{int8_bound:.4f} ms ({int8_by}); no single PyTorch call converts "
+    # the one-launch stage of one calibrated batch: device time by CUDA
+    # events around the call (its table's upload and its launch), queued
+    # behind fills that keep the card busy while the host builds and
+    # queues them; then its scores against the plain version's, score by
+    # score within the bound of phase 8's tables
+    codes_s, q_s, table_s, out_s, kw_s = stage
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
+        codes_s, q_s, table_s, out_s, **kw_s), 20, flush)
+    del flush
+    plain_out = torch.empty_like(out_s)
+    int8_plain_ms = cuda_ms(lambda: kernels.score_int8_lists_reference(
+        codes_s, q_s, table_s, plain_out, **kw_s), 3)
+    stage_err, stage_ratio = lists_within_bound(
+        codes_s, q_s, table_s, out_s, plain_out, kw_s,
+        "score_int8_lists over one calibrated batch")
+    err_int8 = max(err_int8, stage_err)
+    int8_bound, int8_by = lists_bound_ms(codes_s, q_s, table_s)
+    _, ln, _, m, _ = table_s.T
+    log(f"score_int8_lists over one calibrated batch (one launch, "
+        f"{len(table_s)} entries over {len(np.unique(table_s[:, 0]))} "
+        f"lists, {int((m * ln).sum())} scores, each within the bound of "
+        f"the plain version's, worst error/bound {stage_ratio:.4g}): "
+        f"kernel {int8_ms:.4f} ms "
+        f"device time, plain {int8_plain_ms:.4f} ms, bound {int8_bound:.4f} "
+        f"ms ({int8_by}); the per-list launch loop it replaced took "
+        f"{PER_LIST_LOOP_MS} ms (PERF.md); no single PyTorch call converts "
         f"int8 and multiplies (library_ms null) | {card}")
-    del calls, outs
+    del stage, codes_s, q_s, out_s, plain_out
 
     # where a calibrated batch's wall time goes: the probe and the
     # approximate stage (device work, one copy back) against the whole
@@ -1003,13 +1161,14 @@ def and_67m_phase(bs, codec, setops, kernels, dev, card: str) -> dict:
 
 def device_ms_cold(fn, reps: int, flush: torch.Tensor) -> float:
     """Mean device ms of one call of `fn` with the L2 flushed before it:
-    CUDA events right around each call, queued behind a fill of `flush`
-    (larger than the L2) that keeps the card busy while the host queues
-    the call, so no launch gap falls between the events."""
+    CUDA events right around each call, queued behind COLD_FILLS fills
+    of `flush` (larger than the L2) that keep the card busy while the
+    host queues the call, so no launch gap falls between the events."""
     fn()
     pairs = []
     for _ in range(reps):
-        flush.fill_(1)
+        for _ in range(COLD_FILLS):
+            flush.fill_(1)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -11,9 +11,9 @@ Ported so far:
   `csrc/bucket_or.cu`), and its benchmark (`bench.bfs`);
 - the similar_to vector search plane: the exact and two-stage device
   tiers (`ops.knn`) and the quantized IVF tier (`ops.ivf`), with the
-  scoring products as hand-written CUDA kernels
-  (`ops.kernels.score_dot` and `score_int8`, `csrc/score.cu`), and its
-  benchmark (`bench.vectors`).
+  scoring products as hand-written CUDA kernels (`ops.kernels.score_dot`
+  and `score_int8_lists`, the quantized tier's approximate stage in one
+  launch, `csrc/score.cu`), and its benchmark (`bench.vectors`).
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

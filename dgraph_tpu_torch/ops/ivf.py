@@ -10,11 +10,13 @@ On the card the index lives on the device: `codes` (int8), `scales` and
 `centroids` are tensors there beside the numpy fields the host tails
 read. The probe is a `torch.matmul` against the centroids. The
 approximate stage (`_approx_scores_device`) groups the batch by probed
-list, as the reference's host engine does, and makes one launch of the
-hand-written kernel `ops/kernels.score_int8` (`csrc/score.cu`) per
-distinct probed list, over that list's contiguous slice of the codes
-and the queries that probe it; no code row is read twice and nothing is
-gathered. The filter, the (-approx, slot) cut and the float64 re-rank
+list, as the reference's host engine does, builds a work table of
+(list slice, chunk of the queries that probe it) with numpy, and makes
+one launch of the hand-written kernel `ops/kernels.score_int8_lists`
+(`csrc/score.cu`) for the whole batch: each probed list's contiguous
+slice of the codes is read once, nothing is gathered, and the scales
+and the centroid term are applied in the kernel. The filter, the
+(-approx, slot) cut and the float64 re-rank
 stay numpy on the host, as in the reference. On the CPU, `search` runs
 the reference's host engine (`_approx_scores_host`).
 
@@ -47,7 +49,8 @@ import torch
 
 from dgraph_tpu_torch import backend
 from dgraph_tpu_torch.ops import knn
-from dgraph_tpu_torch.ops.kernels import score_int8
+from dgraph_tpu_torch.ops.kernels import (int8_lists_table, lists_m_tile,
+                                          score_int8_lists)
 from dgraph_tpu_torch.utils.metrics import inc_counter
 
 # calibration reference k: nprobe is tuned for recall@K_REF
@@ -393,41 +396,41 @@ def _approx_scores_host(ivf: IVFIndex, lists: np.ndarray,
              for dp in dot_parts])
 
 
-def _approx_scores_device(ivf: IVFIndex, lists: np.ndarray,
-                          cs: np.ndarray, q: torch.Tensor
-                          ) -> tuple[list, list]:
-    """`_approx_scores_host`'s per-query (slots, approx dots), computed
-    on the index's device: one `score_int8` launch per distinct probed
-    list, over the contiguous slice `codes[s:e]` and the m queries that
-    probe it, then `* scales[s:e] + cs[qi, li]`. Every list writes into
-    one flat buffer, which comes to the host in one copy. `q` is the
-    float32 (nq, d) query tensor on the index's device."""
-    nq = len(lists)
+def _list_plan(ivf: IVFIndex, lists: np.ndarray) -> list:
+    """(list id, start, end, query ids) of every non-empty probed list,
+    by list id: the order of the device route's flat output."""
     plan = []
     for li, qis in sorted(_by_list(lists).items()):
         s, e = int(ivf.starts[li]), int(ivf.starts[li + 1])
         if e > s:
             plan.append((li, s, e, qis))
+    return plan
+
+
+def _approx_scores_device(ivf: IVFIndex, lists: np.ndarray,
+                          cs: np.ndarray, q: torch.Tensor
+                          ) -> tuple[list, list]:
+    """`_approx_scores_host`'s per-query (slots, approx dots), computed
+    on the index's device in one `score_int8_lists` launch over a work
+    table of every distinct probed list: the contiguous slice
+    `codes[s:e]`, the queries that probe it (in chunks of at most
+    `lists_m_tile(d, device)`), `* scales[s:e] + cs[qi, li]` in the
+    kernel. The flat output, list after list and query after query,
+    comes to the host in one copy. `q` is the float32 (nq, d) query
+    tensor on the index's device."""
+    nq = len(lists)
+    plan = _list_plan(ivf, lists)
     slot_parts: list[list[np.ndarray]] = [[] for _ in range(nq)]
     dot_parts: list[list[np.ndarray]] = [[] for _ in range(nq)]
     if plan:
-        dev = ivf.device
-        qidx = torch.from_numpy(np.concatenate(
-            [np.asarray(qis, np.int64) for _, _, _, qis in plan])).to(dev)
-        cterm = torch.from_numpy(np.concatenate(
-            [cs[qis, li] for li, _, _, qis in plan]
-        ).astype(np.float32)).to(dev)
-        total = sum(len(qis) * (e - s) for _, s, e, qis in plan)
-        flat = torch.empty(total, dtype=torch.float32, device=dev)
-        off = a = 0
-        for li, s, e, qis in plan:
-            m, ln = len(qis), e - s
-            out = flat[off:off + m * ln].view(m, ln)
-            score_int8(ivf.codes_dev[s:e], q.index_select(0, qidx[a:a + m]),
-                       out=out)
-            out.mul_(ivf.scales_dev[s:e]).add_(cterm[a:a + m, None])
-            off += m * ln
-            a += m
+        table, qidx, total = int8_lists_table(
+            [(s, e, qis) for _, s, e, qis in plan],
+            lists_m_tile(ivf.dim, ivf.device))
+        cterm = np.concatenate([cs[qis, li] for li, _, _, qis in plan]
+                               ).astype(np.float32)
+        flat = torch.empty(total, dtype=torch.float32, device=ivf.device)
+        score_int8_lists(ivf.codes_dev, q, table, flat, qidx=qidx,
+                         scales=ivf.scales_dev, cterm=cterm)
         host = flat.cpu().numpy()
         off = 0
         for li, s, e, qis in plan:

@@ -10,9 +10,12 @@ Counterpart of `dgraph_tpu/ops/pallas_kernels.py`:
 - `score_dot` is the float32 similarity score of the exact vector tiers
   (`csrc/score.cu`, replacing `score_dot_pallas`,
   `pallas_kernels.py:123`).
-- `score_int8` is the int8-code score of the quantized IVF tier
-  (`csrc/score.cu`, replacing `score_int8_pallas`,
-  `pallas_kernels.py:158`).
+- `score_int8_lists` is the approximate stage of the quantized IVF
+  tier in one launch, the int8-code scores of every probed list over a
+  work table (`csrc/score.cu`, replacing `score_int8_pallas`,
+  `pallas_kernels.py:158`); `score_int8` is the same kernel over one
+  dense block of codes. Both count their launches in
+  `score_int8.launches`.
 - `bitmap_and` is the k-way word-AND of the compressed intersection's
   all-bitmap blocks (`csrc/bitmap_and.cu`, replacing
   `bitmap_and_pallas`, `pallas_kernels.py:217`). Words are
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from dgraph_tpu_torch.ops import _build
@@ -156,13 +160,75 @@ def load_score_library() -> ctypes.CDLL:
     """The scoring kernels' library (`csrc/score.cu`), built by nvcc at
     first use."""
     lib = _build.load("score")
-    for fn in (lib.score_dot_launch, lib.score_int8_launch):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    fn = lib.score_dot_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.score_int8_lists_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.score_int8_lists_limits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+                       ctypes.POINTER(ctypes.c_int64)]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def lists_limits(d: int) -> tuple[int, int]:
+    """What the list kernel's library says a table is sized by at depth
+    d: (the most queries an entry may hold, the code rows a block
+    scores). An entry's queries sit in a block's shared memory, each
+    lane keeping one partial sum per query in registers."""
+    max_m, rows = ctypes.c_int64(), ctypes.c_int64()
+    load_score_library().score_int8_lists_limits(
+        d, ctypes.byref(max_m), ctypes.byref(rows))
+    if max_m.value < 1:
+        raise ValueError(f"score_int8_lists holds no query of depth {d} "
+                         f"in a block's shared memory")
+    return max_m.value, rows.value
+
+
+def lists_m_tile(d: int, device) -> int | None:
+    """Queries a table entry may hold at depth d on `device`: the
+    kernel's limit on the card; None (no cut) on the CPU, where the
+    plain version runs."""
+    if torch.device(device).type == "cpu":
+        return None
+    return lists_limits(d)[0]
+
+
+def int8_lists_table(slices, m_tile: int | None = None
+                     ) -> tuple[np.ndarray, np.ndarray, int]:
+    """The work table of `score_int8_lists` for a plan of probed lists.
+
+    `slices` holds (start, end, query ids) for each list, in the order of
+    the flat output. A list's scores fill `m * (end - start)` floats of
+    it, query by query, each query's row of scores contiguous; its
+    queries are cut into entries of at most `m_tile` (None: one entry a
+    list). Lists with no rows or no queries are skipped. Returns (table
+    int64 [E, 5] of (start, rows, first query slot, queries, output
+    offset), qidx int64 [A]: the query of each slot, total floats of the
+    flat output)."""
+    rows, qidx = [], []
+    off = a = 0
+    for s, e, qis in slices:
+        ln, m = int(e) - int(s), len(qis)
+        if ln <= 0 or m == 0:
+            continue
+        step = m_tile or m
+        for c in range(0, m, step):
+            rows.append((int(s), ln, a + c, min(step, m - c), off + c * ln))
+        qidx.append(np.asarray(qis, np.int64))
+        off += m * ln
+        a += m
+    table = np.array(rows, np.int64).reshape(-1, 5)
+    return table, (np.concatenate(qidx) if qidx else
+                   np.empty(0, np.int64)), off
 
 
 def score_dot_reference(corpus: torch.Tensor,
@@ -179,6 +245,31 @@ def score_int8_reference(codes: torch.Tensor,
     """Plain version of `score_int8`: float32 queries . float(codes)^T,
     the counterpart of `score_int8_xla` (`pallas_kernels.py:198`)."""
     return torch.matmul(queries, codes.to(torch.float32).T)
+
+
+def score_int8_lists_reference(codes: torch.Tensor, queries: torch.Tensor,
+                               table: np.ndarray, out: torch.Tensor, *,
+                               qidx: np.ndarray | None = None,
+                               scales: torch.Tensor | None = None,
+                               cterm: np.ndarray | None = None
+                               ) -> torch.Tensor:
+    """Plain version of `score_int8_lists`: walks the same table entry by
+    entry, `torch.matmul` of the entry's queries and its slice of codes,
+    then `mul` by the rows' scales and `add` of the queries' terms, as
+    the reference's `dots * scales + cent`."""
+    dev = codes.device
+    qi = None if qidx is None else torch.from_numpy(qidx).to(dev)
+    ct = None if cterm is None else torch.from_numpy(cterm).to(dev)
+    for s, ln, a, m, off in np.asarray(table).tolist():
+        q = queries[a:a + m] if qi is None else \
+            queries.index_select(0, qi[a:a + m])
+        res = torch.matmul(q, codes[s:s + ln].to(torch.float32).T)
+        if scales is not None:
+            res = res.mul_(scales[s:s + ln])
+        if ct is not None:
+            res = res.add_(ct[a:a + m, None])
+        out[off:off + m * ln].view(m, ln).copy_(res)
+    return out
 
 
 def _check_score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
@@ -207,25 +298,6 @@ def _check_score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
             raise ValueError("out must be contiguous on the rows' device")
 
 
-def _score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
-           out: torch.Tensor | None) -> torch.Tensor:
-    """Launch `<name>_launch` of the scoring library; the wrapper has
-    checked its arguments."""
-    n, d = corpus.shape
-    b = queries.shape[0]
-    if out is None:
-        out = torch.empty((b, n), dtype=torch.float32, device=corpus.device)
-    if n == 0 or b == 0:
-        return out
-    launch = getattr(load_score_library(), f"{name}_launch")
-    err = launch(corpus.data_ptr(), queries.data_ptr(), out.data_ptr(),
-                 n, b, d, torch.cuda.current_stream(corpus.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"(n={n}, b={b}, d={d})")
-    return out
-
-
 def _into(res: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     if out is None:
         return res
@@ -243,26 +315,187 @@ def score_dot(corpus: torch.Tensor, queries: torch.Tensor,
     _check_score("score_dot", corpus, queries, torch.float32, out)
     if corpus.device.type == "cpu":
         return _into(score_dot_reference(corpus, queries), out)
-    res = _score("score_dot", corpus, queries, out)
-    if corpus.shape[0] and queries.shape[0]:
-        score_dot.launches += 1
-    return res
+    n, d = corpus.shape
+    b = queries.shape[0]
+    if out is None:
+        out = torch.empty((b, n), dtype=torch.float32, device=corpus.device)
+    if n == 0 or b == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    err = load_score_library().score_dot_launch(
+        corpus.data_ptr(), queries.data_ptr(), out.data_ptr(), n, b, d,
+        torch.cuda.current_stream(corpus.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_dot kernel launch failed: CUDA error "
+                           f"{err} (n={n}, b={b}, d={d})")
+    score_dot.launches += 1
+    return out
+
+
+def lists_meta(table: np.ndarray, qidx: np.ndarray | None,
+               cterm: np.ndarray | None, tile_rows: int
+               ) -> tuple[np.ndarray, int, tuple[int, int, int]]:
+    """What `score_int8_lists` uploads, in one int64 buffer: the table
+    with a sixth column, each entry's first row tile of `tile_rows` rows
+    (a prefix over the entries before); each row tile's entry (int32
+    pairs); the slots' queries; their terms (float32 pairs). Returns
+    (buffer, row tiles, word offsets of the tile entries, the queries
+    and the terms)."""
+    tiles = -(-table[:, 1] // tile_rows)
+    n_tiles = int(tiles.sum())
+    e = len(table)
+    a = 0 if qidx is None else len(qidx)
+    at_tiles = e * 6
+    at_qidx = at_tiles + -(-n_tiles // 2)
+    at_cterm = at_qidx + a
+    meta = np.zeros(at_cterm + (0 if cterm is None else -(-a // 2)),
+                    np.int64)
+    full = meta[:at_tiles].reshape(e, 6)
+    full[:, :5] = table
+    full[1:, 5] = np.cumsum(tiles[:-1])
+    meta[at_tiles:at_qidx].view(np.int32)[:n_tiles] = np.repeat(
+        np.arange(e, dtype=np.int32), tiles)
+    if qidx is not None:
+        meta[at_qidx:at_cterm] = qidx
+    if cterm is not None:
+        meta[at_cterm:].view(np.float32)[:a] = cterm
+    return meta, n_tiles, (at_tiles, at_qidx, at_cterm)
+
+
+def _launch_lists(codes: torch.Tensor, queries: torch.Tensor,
+                  table: np.ndarray, out: torch.Tensor,
+                  qidx: np.ndarray | None, scales: torch.Tensor | None,
+                  cterm: np.ndarray | None) -> bool:
+    """One launch of the list kernel over a checked table, its
+    `lists_meta` copied up once from pinned memory; False when the table
+    holds no row to score (nothing launched)."""
+    tile_rows = lists_limits(codes.shape[1])[1]
+    meta, n_tiles, (at_tiles, at_qidx, at_cterm) = lists_meta(
+        table, qidx, cterm, tile_rows)
+    if n_tiles == 0:
+        return False
+    dev = codes.device
+    meta_dev = torch.from_numpy(meta).pin_memory().to(dev, non_blocking=True)
+    base = meta_dev.data_ptr()
+    err = load_score_library().score_int8_lists_launch(
+        codes.data_ptr(), queries.data_ptr(),
+        None if scales is None else scales.data_ptr(), base,
+        base + 8 * at_tiles, None if qidx is None else base + 8 * at_qidx,
+        None if cterm is None else base + 8 * at_cterm,
+        out.data_ptr(), n_tiles, tile_rows, codes.shape[1],
+        int(table[:, 3].max()), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_int8_lists kernel launch failed: CUDA "
+                           f"error {err} (entries={len(table)}, tiles="
+                           f"{n_tiles}, d={codes.shape[1]})")
+    return True
 
 
 def score_int8(codes: torch.Tensor, queries: torch.Tensor,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """float32 scores queries . float(codes)^T: codes int8[n, d], queries
     float32[b, d] -> float32[b, n], the int8 converted to float32 in the
-    kernel's tile. `out` as for `score_dot`. On CUDA tensors the kernel
-    runs and `score_int8.launches` counts it; on CPU tensors the plain
-    version runs."""
+    kernel. `out` as for `score_dot`. On CUDA tensors the list kernel
+    runs over one entry per `lists_m_tile(d, device)` queries covering
+    all rows, with scale 1 and term 0 (exact), and `score_int8.launches`
+    counts it; on CPU tensors the plain version runs."""
     _check_score("score_int8", codes, queries, torch.int8, out)
     if codes.device.type == "cpu":
         return _into(score_int8_reference(codes, queries), out)
-    res = _score("score_int8", codes, queries, out)
-    if codes.shape[0] and queries.shape[0]:
+    n, d = codes.shape
+    b = queries.shape[0]
+    if out is None:
+        out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
+    if n == 0 or b == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    mt = lists_m_tile(d, codes.device)
+    table = np.array([(0, n, a, min(mt, b - a), a * n)
+                      for a in range(0, b, mt)], np.int64)
+    if _launch_lists(codes, queries, table, out.view(-1), None, None, None):
         score_int8.launches += 1
-    return res
+    return out
+
+
+def _check_lists(codes: torch.Tensor, queries: torch.Tensor,
+                 table: np.ndarray, out: torch.Tensor,
+                 qidx: np.ndarray | None, scales: torch.Tensor | None,
+                 cterm: np.ndarray | None) -> None:
+    _check_score("score_int8_lists", codes, queries, torch.int8, None)
+    n, d = codes.shape
+    b = queries.shape[0]
+    if out.dtype != torch.float32 or out.dim() != 1 or \
+            not out.is_contiguous() or out.device != codes.device:
+        raise ValueError("out must be a contiguous 1-d float32 tensor on "
+                         "the codes' device")
+    if scales is not None and (
+            scales.dtype != torch.float32 or tuple(scales.shape) != (n,)
+            or not scales.is_contiguous() or scales.device != codes.device):
+        raise ValueError(f"scales must be contiguous float32 [{n}] on the "
+                         f"codes' device")
+    if not isinstance(table, np.ndarray) or table.dtype != np.int64 or \
+            table.ndim != 2 or table.shape[1] != 5:
+        raise ValueError("table must be a numpy int64 [E, 5] array")
+    slots = b
+    if qidx is not None:
+        if not isinstance(qidx, np.ndarray) or qidx.dtype != np.int64 or \
+                qidx.ndim != 1:
+            raise ValueError("qidx must be a numpy int64 [A] array")
+        if len(qidx) and (qidx.min() < 0 or qidx.max() >= b):
+            raise ValueError(f"qidx holds a query outside [0, {b})")
+        slots = len(qidx)
+    if cterm is not None and (
+            not isinstance(cterm, np.ndarray) or cterm.dtype != np.float32
+            or cterm.shape != (slots,)):
+        raise ValueError(f"cterm must be a numpy float32 [{slots}] array")
+    if not len(table):
+        return
+    s, ln, a, m, off = table.T
+    if (s < 0).any() or (ln < 0).any() or (s + ln > n).any():
+        raise ValueError(f"a table entry's rows lie outside [0, {n})")
+    if (m < 1).any():
+        raise ValueError("a table entry holds no query")
+    mt = lists_m_tile(d, codes.device)
+    if mt is not None and (m > mt).any():
+        raise ValueError(f"a table entry holds more than the kernel's {mt} "
+                         f"queries at depth {d}")
+    if (a < 0).any() or (a + m > slots).any():
+        raise ValueError(f"a table entry's query slots lie outside "
+                         f"[0, {slots})")
+    if (off < 0).any() or (off + m * ln > out.numel()).any():
+        raise ValueError("a table entry's scores lie outside out")
+
+
+def score_int8_lists(codes: torch.Tensor, queries: torch.Tensor,
+                     table: np.ndarray, out: torch.Tensor, *,
+                     qidx: np.ndarray | None = None,
+                     scales: torch.Tensor | None = None,
+                     cterm: np.ndarray | None = None) -> torch.Tensor:
+    """A quantized search's approximate stage in one launch: for every
+    entry (s, rows, a, m, off) of `table` (`int8_lists_table`), query
+    slot a + j and code row s + r,
+
+        out[off + j * rows + r] =
+            dot(queries[qidx[a + j]], float(codes[s + r]))
+            * scales[s + r] + cterm[a + j]
+
+    rounded after the product and after the sum, as the reference. codes
+    int8 [n, d] and queries float32 [b, d] on one device, out a flat
+    float32 tensor there; table, qidx (None: slot a is query a) and
+    cterm (None: 0) numpy on the host; scales (None: 1) float32 [n] on
+    the device. On CUDA tensors the kernel runs once, and
+    `score_int8.launches` counts it, unless the table holds no row; on
+    CPU tensors the plain version runs."""
+    _check_lists(codes, queries, table, out, qidx, scales, cterm)
+    if codes.device.type == "cpu":
+        return score_int8_lists_reference(codes, queries, table, out,
+                                          qidx=qidx, scales=scales,
+                                          cterm=cterm)
+    if _launch_lists(codes, queries, table, out, qidx, scales, cterm):
+        score_int8.launches += 1
+    return out
 
 
 score_dot.launches = 0

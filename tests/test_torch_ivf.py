@@ -21,6 +21,7 @@ import torch
 from dgraph_tpu.ops import ivf as jivf
 from dgraph_tpu.ops import knn as jknn
 from dgraph_tpu_torch.ops import ivf as tivf
+from dgraph_tpu_torch.ops import kernels
 from dgraph_tpu_torch.utils import metrics
 
 CPU = "cpu"
@@ -115,13 +116,21 @@ def _approx_bound(ix, slots, q1):
     return dot_b * ix.scales[slots] + 1e-6
 
 
-def test_device_route_equals_host_engine(reference_index):
-    """The kernel's caller, run on CPU tensors: one score_int8 call per
-    distinct probed list, the same (slots, approx dots) per query in the
-    host engine's order, and the same slots as the reference's Pallas
-    caller (which orders by probe rank)."""
+def test_device_route_equals_host_engine(reference_index, monkeypatch):
+    """The kernel's caller, run on CPU tensors: one score_int8_lists call
+    per search, over a table of every distinct probed list, the same
+    (slots, approx dots) per query in the host engine's order, and the
+    same slots as the reference's Pallas caller (which orders by probe
+    rank)."""
     corpus, jix = reference_index
     tix = tivf.ivf_index_from_arrays(dataclasses.asdict(jix), CPU)
+    calls = []
+
+    def counted(codes, queries, table, out, **kw):
+        calls.append(table)
+        return kernels.score_int8_lists(codes, queries, table, out, **kw)
+
+    monkeypatch.setattr(tivf, "score_int8_lists", counted)
     q = corpus[:5] + np.float32(0.01)
     q_t = torch.from_numpy(q)
     cs_t, lists_t = tivf._probe(q_t, tix.centroids_dev, 8, "euclidean")
@@ -129,6 +138,10 @@ def test_device_route_equals_host_engine(reference_index):
     hs, hd = tivf._approx_scores_host(tix, lists, cs, q)
     ds, dd = tivf._approx_scores_device(tix, lists, cs, q_t)
     ps, pd = jivf._approx_scores_pallas(jix, lists, cs, q, True)
+    assert len(calls) == 1
+    li = np.unique(lists)
+    assert len(np.unique(calls[0][:, 0])) == \
+        int(np.sum(tix.starts[li + 1] > tix.starts[li]))
     for qi in range(len(q)):
         np.testing.assert_array_equal(ds[qi], hs[qi])
         assert dd[qi].dtype == np.float32
@@ -138,6 +151,46 @@ def test_device_route_equals_host_engine(reference_index):
         np.testing.assert_array_equal(ds[qi], ps[qi][order])
         assert (np.abs(dd[qi].astype(np.float64) - pd[qi][order])
                 <= _approx_bound(tix, ds[qi], q[qi])).all()
+
+
+@pytest.mark.parametrize("nprobe", [1, 2, 8, 64])
+@pytest.mark.parametrize("m_tile", [1, 2, 8])
+def test_list_table_covers_the_probe(reference_index, nprobe, m_tile):
+    """The table built from a probe: every (list, query) pair of the
+    probe exactly once, in chunks of at most m_tile, empty lists
+    skipped, each query's scores at the offset of the flat layout (list
+    by list id, m * rows floats each, query after query)."""
+    corpus, jix = reference_index
+    tix = tivf.ivf_index_from_arrays(dataclasses.asdict(jix), CPU)
+    # 40 queries around 3 points: lists probed by many queries
+    q = corpus[np.arange(40) % 3] + np.float32(0.01) * np.random.default_rng(
+        nprobe).standard_normal((40, corpus.shape[1])).astype(np.float32)
+    _, lists_t = tivf._probe(torch.from_numpy(q), tix.centroids_dev, nprobe,
+                             "cosine")
+    lists = lists_t.numpy()
+    plan = tivf._list_plan(tix, lists)
+    table, qidx, total = kernels.int8_lists_table(
+        [(s, e, qis) for _, s, e, qis in plan], m_tile)
+    assert (table[:, 3] >= 1).all() and (table[:, 3] <= m_tile).all()
+    # a list probed by more than m_tile queries takes several entries
+    assert len(table) == sum(-(-len(qis) // m_tile) for *_, qis in plan)
+    assert len(plan) == len(np.unique(table[:, 0]))
+    want = {(int(tix.starts[li]), qi) for qi in range(len(q))
+            for li in lists[qi] if tix.starts[li + 1] > tix.starts[li]}
+    slot_off = {}
+    for s, ln, a, m, off in table.tolist():
+        li = int(np.searchsorted(tix.starts, s, "right")) - 1
+        assert ln == tix.starts[li + 1] - s > 0
+        for j in range(m):
+            slot_off[a + j] = (s, int(qidx[a + j]), off + j * ln)
+    got = [slot_off[i][:2] for i in range(len(qidx))]
+    assert len(got) == len(set(got)) and set(got) == want
+    off, exp = 0, []
+    for _, s, e, qis in plan:
+        exp += [off + j * (e - s) for j in range(len(qis))]
+        off += len(qis) * (e - s)
+    assert [slot_off[i][2] for i in range(len(qidx))] == exp
+    assert total == off
 
 
 def test_probe_matches_reference(reference_index):

@@ -258,11 +258,251 @@ def test_score_wrapper_rejects(name, case):
 
 
 def test_score_source_builds_beside_bucket_or():
+    """csrc/score.cu holds two kernels behind two C entry points, the
+    dense float32 product and the int8 list-table product; the old
+    template that served both element types is gone."""
     assert (_build.CSRC_DIR / "score.cu").exists()
     assert _build.library_path("score").parent == _build.BUILD_DIR
     src = (_build.CSRC_DIR / "score.cu").read_text()
-    for entry in ("score_dot_launch", "score_int8_launch"):
+    for entry in ("score_dot_launch", "score_int8_lists_launch",
+                  "score_int8_lists_limits"):
         assert f'extern "C" int {entry}(' in src
+    assert 'extern "C" int score_int8_launch(' not in src
+    assert "score_kernel<" not in src
+    assert "__fmul_rn" in src and "__fadd_rn" in src
+    assert "cp.async" in src
+
+
+# -- score_int8_lists: the work table and the plain version ------------------
+
+
+def _slot_offsets(table, m_tile):
+    """query slot -> (list start, output offset of its row of scores),
+    from a table, checking each entry's chunk against m_tile."""
+    got = {}
+    for s, ln, a, m, off in table.tolist():
+        assert 1 <= m <= m_tile and ln >= 1
+        for j in range(m):
+            assert a + j not in got
+            got[a + j] = (s, off + j * ln)
+    return got
+
+
+@pytest.mark.parametrize("m_tile", [1, 2, 8, None])
+@pytest.mark.parametrize("ms", [(1,), (8,), (9,), (17, 2, 1),
+                                (0, 5, 8, 9)])
+def test_int8_lists_table_layout(m_tile, ms):
+    """Every (list, query) pair once, chunks of at most m_tile (None:
+    one entry a list), lists with no rows or no queries skipped, and
+    each query's row of scores at the offset the per-list loop gave it:
+    lists one after another, m * rows floats each, query after query."""
+    rng = np.random.default_rng(sum(ms) + (m_tile or 0))
+    starts = np.cumsum([0] + [int(rng.integers(0, 9)) for _ in ms]
+                       + [0])           # some lists have no rows
+    slices = [(int(starts[i]), int(starts[i + 1]),
+               sorted(rng.choice(40, m, replace=False).tolist()))
+              for i, m in enumerate(ms)]
+    table, qidx, total = kernels.int8_lists_table(slices, m_tile)
+    assert table.dtype == np.int64 and table.shape[1] == 5
+    got = _slot_offsets(table, m_tile or max(ms))
+    assert sorted(got) == list(range(len(qidx)))
+    step = m_tile or max(ms)
+    assert len(table) == sum(-(-len(qis) // step)
+                             for s, e, qis in slices if e > s)
+    want_pairs, want_off, off = [], [], 0
+    for s, e, qis in slices:
+        if e <= s or not qis:
+            continue
+        for j, qi in enumerate(qis):
+            want_pairs.append((s, qi))
+            want_off.append(off + j * (e - s))
+        off += len(qis) * (e - s)
+    assert total == off
+    assert [(got[i][0], int(qidx[i])) for i in range(len(qidx))] == \
+        want_pairs
+    assert [got[i][1] for i in range(len(qidx))] == want_off
+
+
+def test_int8_lists_table_empty():
+    table, qidx, total = kernels.int8_lists_table([(3, 3, [1]), (4, 9, [])])
+    assert table.shape == (0, 5) and qidx.shape == (0,) and total == 0
+
+
+def test_lists_m_tile_fits_shared_memory(monkeypatch):
+    """Only the kernel keeps an entry's queries in shared memory, and
+    its library states how many fit (`score_int8_lists_limits`, read on
+    the card); the CPU's plain version has no such limit, so a table
+    built for it holds each list in one entry, and asking needs no
+    library."""
+    def no_library():
+        raise AssertionError("the CPU route loaded the kernel's library")
+
+    monkeypatch.setattr(kernels, "load_score_library", no_library)
+    for d in (1, 128, 5790, 40_000):
+        assert kernels.lists_m_tile(d, torch.device("cpu")) is None
+        assert kernels.lists_m_tile(d, "cpu") is None
+    table, _, _ = kernels.int8_lists_table(
+        [(0, 5, list(range(40))), (5, 9, [3])],
+        kernels.lists_m_tile(128, "cpu"))
+    np.testing.assert_array_equal(table[:, 3], [40, 1])
+    src = (_build.CSRC_DIR / "score.cu").read_text()
+    assert 'extern "C" int score_int8_lists_limits(' in src
+
+
+@pytest.mark.parametrize("with_slots", [False, True])
+def test_lists_meta_maps_every_row_tile(with_slots):
+    """The buffer the list kernel reads: each entry's first row tile,
+    each row tile's entry (the kernel's two loads that find its work),
+    the slots' queries and their terms, at the offsets it is given."""
+    table = np.array([[0, 1, 0, 1, 0], [5, 0, 1, 2, 1], [9, 300, 1, 2, 1],
+                      [400, 128, 3, 1, 601], [600, 129, 4, 3, 729]],
+                     np.int64)
+    qidx = np.array([4, 0, 2, 9, 1, 1, 3], np.int64) if with_slots else None
+    cterm = np.linspace(-2, 2, 7, dtype=np.float32) if with_slots else None
+    rows = 64
+    meta, n_tiles, (at_t, at_q, at_c) = kernels.lists_meta(table, qidx,
+                                                           cterm, rows)
+    assert n_tiles == 1 + 0 + 5 + 2 + 3
+    full = meta[:at_t].reshape(-1, 6)
+    np.testing.assert_array_equal(full[:, :5], table)
+    np.testing.assert_array_equal(full[:, 5], [0, 1, 1, 6, 8])
+    entry = meta[at_t:at_q].view(np.int32)[:n_tiles]
+    np.testing.assert_array_equal(entry, [0, 2, 2, 2, 2, 2, 3, 3, 4, 4, 4])
+    # block t scores rows [(t - first) * 64, ...) of its entry: every
+    # row of every entry exactly once
+    seen = [(int(full[e, 0]) + (t - int(full[e, 5])) * rows + r)
+            for t, e in enumerate(entry) for r in range(rows)
+            if (t - full[e, 5]) * rows + r < full[e, 1]]
+    want = [int(s) + r for s, ln, *_ in table.tolist() for r in range(ln)]
+    assert sorted(seen) == sorted(want)
+    if with_slots:
+        np.testing.assert_array_equal(meta[at_q:at_c], qidx)
+        np.testing.assert_array_equal(meta[at_c:].view(np.float32)[:7], cterm)
+    else:
+        assert len(meta) == at_q == at_c
+
+
+def _lists_case(seed, d=64, n=3000, b=40):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, (n, d), dtype=np.int8)
+    q = rng.standard_normal((b, d), dtype=np.float32)
+    scales = (rng.random(n, dtype=np.float32) / 127).astype(np.float32)
+    slices = [(0, 1, [3]), (1, 700, [0, 5]), (700, 700, [2]),
+              (700, 1500, list(range(17))), (1500, 2999, [39]),
+              (2999, 3000, list(range(0, 40, 2)))]
+    return codes, q, scales, slices
+
+
+def test_score_int8_lists_reference_matches_pallas_interpret():
+    """Entry by entry, the plain version's dots (no scales, no terms)
+    against the TPU kernel in interpret mode and `score_int8_xla` within
+    the reordering bound; with scales and terms it is exactly
+    fl(fl(dot * scale) + term), the reference's `dots * scales + cent`."""
+    from dgraph_tpu.ops.pallas_kernels import (
+        SCORE_TILE_N, score_int8_pallas, score_int8_xla)
+
+    codes, q, scales, slices = _lists_case(41)
+    table, qidx, total = kernels.int8_lists_table(slices)
+    ct, qt = torch.from_numpy(codes), torch.from_numpy(q)
+    dots = kernels.score_int8_lists_reference(
+        ct, qt, table, torch.full((total,), np.nan), qidx=qidx).numpy()
+    cterm = np.random.default_rng(42).standard_normal(
+        len(qidx)).astype(np.float32)
+    full = kernels.score_int8_lists_reference(
+        ct, qt, table, torch.full((total,), np.nan), qidx=qidx,
+        scales=torch.from_numpy(scales), cterm=cterm).numpy()
+    assert not np.isnan(dots).any() and not np.isnan(full).any()
+    for s, ln, a, m, off in table.tolist():
+        block = codes[s:s + ln]
+        qs = q[qidx[a:a + m]]
+        got = dots[off:off + m * ln].reshape(m, ln)
+        pad = np.zeros((-ln % SCORE_TILE_N, codes.shape[1]), np.int8)
+        padded = jnp.asarray(np.concatenate([block, pad]))
+        bound = reorder_bound(qs, block)
+        for want in (np.asarray(score_int8_pallas(padded, jnp.asarray(qs),
+                                                  interpret=True))[:, :ln],
+                     np.asarray(score_int8_xla(jnp.asarray(block),
+                                               jnp.asarray(qs)))):
+            assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+        epi = got * scales[s:s + ln][None, :] + cterm[a:a + m, None]
+        assert epi.dtype == np.float32
+        np.testing.assert_array_equal(full[off:off + m * ln].reshape(m, ln),
+                                      epi)
+
+
+def test_score_int8_lists_wrapper_on_cpu_runs_plain_version_without_launch():
+    codes, q, scales, slices = _lists_case(43, d=37)
+    table, qidx, total = kernels.int8_lists_table(slices)
+    cterm = np.linspace(-1, 1, len(qidx), dtype=np.float32)
+    args = (torch.from_numpy(codes), torch.from_numpy(q), table)
+    kw = dict(qidx=qidx, scales=torch.from_numpy(scales), cterm=cterm)
+    before = kernels.score_int8.launches
+    big = torch.full((total + 2,), 7.0)
+    res = kernels.score_int8_lists(*args, big[1:total + 1], **kw)
+    assert kernels.score_int8.launches == before
+    assert res.data_ptr() == big[1:].data_ptr()
+    want = kernels.score_int8_lists_reference(*args, torch.empty(total),
+                                              **kw)
+    assert torch.equal(res, want)
+    assert float(big[0]) == 7.0 and float(big[-1]) == 7.0
+    # an empty table writes nothing
+    empty = np.zeros((0, 5), np.int64)
+    out = torch.full((4,), 7.0)
+    kernels.score_int8_lists(args[0], args[1], empty, out)
+    assert kernels.score_int8.launches == before
+    assert bool((out == 7.0).all())
+
+
+def _bad_lists_inputs(case):
+    codes = torch.zeros((10, 4), dtype=torch.int8)
+    q = torch.zeros((3, 4), dtype=torch.float32)
+    table = np.array([[0, 10, 0, 3, 0]], np.int64)
+    out = torch.zeros(30)
+    kw = {}
+    if case == "codes_dtype":
+        codes = codes.to(torch.int16)
+    elif case == "depth":
+        q = torch.zeros((3, 5))
+    elif case == "out_rank":
+        out = out.view(3, 10)
+    elif case == "out_dtype":
+        out = out.double()
+    elif case == "out_short":
+        out = torch.zeros(29)
+    elif case == "table_dtype":
+        table = table.astype(np.int32)
+    elif case == "table_shape":
+        table = table[:, :4]
+    elif case == "table_tensor":
+        table = torch.from_numpy(table)
+    elif case == "rows_past_end":
+        table = np.array([[5, 6, 0, 3, 0]], np.int64)
+    elif case == "too_many_queries":     # more than there are slots
+        table = np.array([[0, 1, 0, 17, 0]], np.int64)
+    elif case == "no_queries":
+        table = np.array([[0, 10, 0, 0, 0]], np.int64)
+    elif case == "slots_past_end":
+        table = np.array([[0, 10, 1, 3, 0]], np.int64)
+    elif case == "qidx_range":
+        kw["qidx"] = np.array([0, 1, 3], np.int64)
+    elif case == "cterm_length":
+        kw["cterm"] = np.zeros(2, np.float32)
+    elif case == "scales_shape":
+        kw["scales"] = torch.ones(9)
+    elif case == "device":
+        codes, q, out = codes.to("meta"), q.to("meta"), out.to("meta")
+    return codes, q, table, out, kw
+
+
+@pytest.mark.parametrize("case", [
+    "codes_dtype", "depth", "out_rank", "out_dtype", "out_short",
+    "table_dtype", "table_shape", "table_tensor", "rows_past_end",
+    "too_many_queries", "no_queries", "slots_past_end", "qidx_range",
+    "cterm_length", "scales_shape", "device"])
+def test_score_int8_lists_wrapper_rejects(case):
+    codes, q, table, out, kw = _bad_lists_inputs(case)
+    with pytest.raises((TypeError, ValueError)):
+        kernels.score_int8_lists(codes, q, table, out, **kw)
 
 
 def test_build_all_failure_raises_and_leaves_nothing(monkeypatch, tmp_path):
