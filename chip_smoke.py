@@ -9,21 +9,36 @@ Phases, each of which fails the run:
 
 1. card: name and power limit (nvidia-smi);
 2. build: one nvcc per kernel source, all started together, timed;
-3. kernels against their plain PyTorch versions on the card, bit-exact,
-   over W in {1, 5, 128, 768}, degrees {1, 2, 3, 4, 6}, a hub row of
-   degree > 2^20 and padding indices at the dummy row N;
+3. kernels against their plain PyTorch versions on the card, bit-exact:
+   bucket_or over W in {1, 5, 128, 768}, degrees {1, 2, 3, 4, 6}, a hub
+   row of degree > 2^20 and padding indices at the dummy row N; the fused
+   bucket_or_level (frontier, visited, masks and sum) over W in {1, 5,
+   37, 128, 768, 1,100}, frontier densities 0, one bit a row and 1/2
+   (and 1/2 with mask bits cleared), the same degrees plus a warp's
+   whole chunk (256), split rows of 257 and 3,000 and the hub,
+   all-padding rows, visited in place and level 1's seeds with a row
+   map, into rows of larger tensors whose other rows must stay
+   untouched;
 4. the main path at the reference regime (bench.py's shape: 2M nodes,
    21M generated zipf(1.3) edges, B = 24,576 queries of 8 seeds, depth
-   3): the digest with the kernel, with the kernels' launch counts set
-   to 0 just before and read just after; sustained ms per batch with
-   PIPE batches in flight (all batches over all the timed wall time);
-   then `bfs_bits_reach_batched`, counted on its own the same way;
+   3): the digest, every level's buckets through bucket_or_level, with
+   the launch counts set to 0 just before and read just after: its
+   launches a batch asserted by their formula (one a bucket and level,
+   split buckets included) and bucket_or's asserted 0; sustained
+   ms per batch with PIPE batches in flight (all batches over all the
+   timed wall time); then `bfs_bits_reach_batched`, counted on its own
+   the same way (bucket_or, one a bucket and level);
 5. answers: the digest's level sums and first-word column against the
    digest run with the plain version on the card; per-query counts of
    queries 0..31 and per-level uid sets of the first REACH_QUERIES
    queries against the numpy oracle;
-6. per level, the kernel's time over that level's launches beside the
-   plain version's time and the bound (bytes over 3.35 TB/s);
+6. per level, on the digest's own inputs: bucket_or_level's device time
+   (CUDA events behind fills that outlast the host's queueing of the
+   level's launches) beside the unfused path's (bucket_or and the PyTorch
+   epilogue it replaced, composed here only, its answer asserted
+   equal), the plain version's time and the bound (bytes over 3.35
+   TB/s, counting the non-zero segments the level needs); bucket_or
+   alone beside its plain version and its whole-row bound;
 7. where a batch's device time goes: torch.profiler over PIPE batches,
    self device time by kernel name and the device's idle share.
 
@@ -94,6 +109,7 @@ the rest of the repo.
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
@@ -110,6 +126,9 @@ TPU_LEVEL_SUMS = [1009222, 3337375, 7608784]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM data sheet, outside tensor cores
 RUNS = 4                           # timed groups of PIPE batches
+# bucket_or_level's checks: partial segments (5, 37), and 1,100 words,
+# whose segments widen to 64 words
+LEVEL_WIDTHS = (1, 5, 37, 128, 768, 1100)
 REACH_QUERIES = 48
 KERNEL_REPS = 10
 PLAIN_REPS = 2
@@ -190,16 +209,108 @@ def check_kernel_shapes(kernels, dev, card: str) -> int:
     return worst
 
 
-def level_records(calls, offsets: dict[int, int]):
-    """Group the recorded (f, in_nb) calls of a digest into levels, one
-    per frontier tensor in call order, each bucket with its row offset
-    (looked up by the identity of its in_nb tensor)."""
-    levels: list[tuple[torch.Tensor, list]] = []
-    for f, nb in calls:
-        if not levels or levels[-1][0] is not f:
-            levels.append((f, []))
-        levels[-1][1].append((nb, offsets[id(nb)]))
-    return levels
+def level_frontier(rows: int, width: int, density: str, gen, dev,
+                   word_bits: np.ndarray):
+    """A frontier int32 [rows+1, W] with the dummy row zero: all zero,
+    about one bit a row, or every bit set with probability 1/2."""
+    if density == "1/2":
+        f = torch.randint(-2**31, 2**31, (rows + 1, width), dtype=torch.int32,
+                          device=dev, generator=gen)
+    else:
+        f = torch.zeros((rows + 1, width), dtype=torch.int32, device=dev)
+        if density == "1 bit a row":
+            col = torch.randint(0, 32 * width, (rows,), device=dev,
+                                generator=gen)
+            bits = torch.from_numpy(word_bits).to(dev)
+            f[torch.arange(rows, device=dev), col // 32] = bits[col % 32]
+    f[rows] = 0
+    return f
+
+
+def check_level_shapes(kernels, dev, card: str) -> int:
+    """Phase 3, second half: bucket_or_level against its plain version on
+    the card, bit for bit (frontier, visited, masks and the sum), in both
+    modes (visited in place; level 1's seeds with a row map), writing
+    into rows of larger tensors whose other rows must stay untouched.
+    Returns the largest count of differing words (0, or it raises)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = 40_000
+    cases = [(20_000, d) for d in (1, 2, 3, 4, 6)]
+    # a warp's whole chunk, the first split degree, split rows, a hub
+    cases += [(40, kernels.LEVEL_CHUNK), (9, kernels.LEVEL_CHUNK + 1),
+              (3, 3_000), (1, (1 << 20) + 24)]
+    densities = ("0", "1 bit a row", "1/2", "1/2, mask bits cleared")
+    checked = 0
+    for width in LEVEL_WIDTHS:
+        for density in densities:
+            f = level_frontier(n, width, density.split(",")[0], gen, dev,
+                               kernels.WORD_BITS)
+            mask = kernels.segment_masks(f)
+            if "cleared" in density:                 # masks honoured
+                mask &= torch.randint(-2**31, 2**31, mask.shape,
+                                      dtype=torch.int32, device=dev,
+                                      generator=gen)
+            for m, d in cases:
+                nb = torch.randint(0, n + 1, (m, d), dtype=torch.int32,
+                                   device=dev, generator=gen)
+                nb.view(-1)[::5] = n                 # padding entries
+                if m > 7:
+                    nb[1::7] = n                     # all-padding rows
+                for row_map in (False, True):
+                    check_level_case(kernels, f, mask, nb, row_map, gen,
+                                     f"W={width} density {density} M={m} "
+                                     f"D={d} row map {row_map}")
+                    checked += 1
+            del f, mask
+    log(f"kernel check: bucket_or_level bit-exact to its plain version "
+        f"(frontier, visited, masks, sum) on {checked} cases: W "
+        f"{list(LEVEL_WIDTHS)} x densities {list(densities)} x "
+        f"{len(cases)} shapes (D={kernels.LEVEL_CHUNK} unsplit, split "
+        f"D={kernels.LEVEL_CHUNK + 1} and 3,000, hub D=2^20+24, all-padding "
+        f"rows) x (visited in place, level-1 seeds with a row map), into "
+        f"rows of larger tensors with the rest kept | {card}")
+    return 0
+
+
+def check_level_case(kernels, f, mask, nb, row_map: bool, gen,
+                     label: str) -> None:
+    """One bucket_or_level call against its plain version on copies of
+    the same output tensors; raises on any difference."""
+    dev = f.device
+    m, width = nb.shape[0], f.shape[1]
+    n_out = m + 2
+
+    def rand_words(rows):
+        return torch.randint(-2**31, 2**31, (rows, width), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    outs = [torch.full((n_out, width), 7, dtype=torch.int32, device=dev),
+            rand_words(n_out),
+            torch.full((n_out,), 7, dtype=torch.int32, device=dev),
+            torch.full((1,), 5, dtype=torch.int64, device=dev)]
+    if row_map:
+        seeds = rand_words(m) & rand_words(m)        # density 1/4
+        kw = dict(seeds=seeds, seeds_mask=kernels.segment_masks(seeds),
+                  rows=torch.randperm(n_out, device=dev, generator=gen)[:m]
+                  .to(torch.int32))
+    else:
+        kw = {}
+    want = [t.clone() for t in outs]
+
+    def call(fn, fr, vis, om, tot):
+        if row_map:
+            fn(f, mask, nb, fr, vis, om, tot, **kw)
+        else:
+            fn(f, mask, nb, fr[1:m + 1], vis[1:m + 1], om[1:m + 1], tot)
+
+    call(kernels.bucket_or_level, *outs)
+    call(kernels.bucket_or_level_reference, *want)
+    torch.cuda.synchronize()
+    for got, ref, what in zip(outs, want, ("frontier", "visited", "masks",
+                                          "sum")):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"bucket_or_level != plain version: "
+                                 f"{what} at {label}")
 
 
 def time_level(fn, f, recs, reps: int) -> tuple[float, torch.Tensor]:
@@ -290,15 +401,168 @@ def build_kernels(_build, names: list[str]) -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def bfs_plane(dev, card: str) -> dict:
+def fused_level_bound_ms(kernels, lv, out_mask) -> float:
+    """Least time for one fused level (bucket_or_level's bound): bytes
+    over the memory rate of the index table, the masks of the distinct
+    rows it references, their non-zero segments once each, the frontier
+    and its masks written in full, and visited: at level 1 the seeds'
+    non-zero segments read and visited written in full, deeper its
+    segments read and written where the new frontier is non-zero. It
+    counts segments, not whole rows, so it is not `level_bound_ms`."""
+    f, mask = lv["f"], lv["mask"]
+    width = f.shape[1]
+    rows = out_mask.shape[0] - 1
+    seg = kernels.segment_words(width)
+    nseg = -(-width // seg)
+    seg_bytes = torch.tensor([4 * (min(width, (s + 1) * seg) - s * seg)
+                              for s in range(nseg)], dtype=torch.int64,
+                             device=f.device)
+    shifts = torch.arange(nseg, dtype=torch.int32, device=f.device)
+
+    def nz_bytes(masks):
+        bits = ((masks[:, None] >> shifts) & 1).to(torch.int64)
+        return int((bits * seg_bytes).sum())
+
+    idx = torch.cat([c["in_nb"].reshape(-1) for c in lv["calls"]])
+    distinct = torch.unique(idx).long()
+    nbytes = 4 * idx.numel() + 4 * distinct.numel() + \
+        nz_bytes(mask[distinct]) + 4 * rows * (width + 1)
+    if lv["level1"]:
+        seeds_mask = torch.cat([c["kw"]["seeds_mask"] for c in lv["calls"]])
+        nbytes += nz_bytes(seeds_mask) + 4 * rows * width
+    else:
+        nbytes += 2 * nz_bytes(out_mask[:rows])
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def digest_levels(calls, offsets: dict[int, int], n_rows: int):
+    """Group the recorded bucket_or_level calls of a digest into levels,
+    one per frontier tensor in call order, each call with its bucket's
+    row offset (by the identity of its in_nb tensor); a deeper level
+    gets its visited rows before the level (`vis0`) from the calls'
+    snapshots."""
+    levels = []
+    for c in calls:
+        if not levels or levels[-1]["f"] is not c["f"]:
+            levels.append({"f": c["f"], "mask": c["mask"], "calls": [],
+                           "level1": c["kw"].get("seeds") is not None})
+        c["offset"] = offsets[id(c["in_nb"])]
+        levels[-1]["calls"].append(c)
+    for lv in levels:
+        if lv["level1"]:
+            continue
+        width = lv["f"].shape[1]
+        vis0 = torch.empty((n_rows + 1, width), dtype=torch.int32,
+                           device=lv["f"].device)
+        vis0[n_rows] = 0
+        for c in lv["calls"]:
+            vis0[c["offset"]:c["offset"] + c["in_nb"].shape[0]] = \
+                c.pop("vis0")
+        lv["vis0"] = vis0
+    return levels
+
+
+def timed_passes(one_pass, reset, reps: int, flush: torch.Tensor) -> float:
+    """Mean device ms of `one_pass` over `reps` passes after one warm-up:
+    CUDA events right around each pass, queued behind `reset` (which
+    restores its inputs) and fills of `flush` (larger than the L2) that
+    keep the card busy while the host queues the pass: COLD_FILLS, and
+    for a pass of many launches one more for each 0.1 ms the host took
+    to queue the warm-up pass, twice over (a fill takes about 0.16 ms),
+    so the events time the card and not the host."""
+    pairs = []
+    lead = COLD_FILLS
+    for r in range(reps + 1):
+        reset()
+        for _ in range(lead):
+            flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        one_pass()
+        host_s = time.perf_counter() - t0
+        end.record()
+        if r:
+            pairs.append((start, end))
+        else:
+            lead = COLD_FILLS + math.ceil(2 * host_s / 1e-4)
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def time_fused_level(fn, lv, n_rows: int, reps: int, flush):
+    """Device ms of one pass of `fn` (bucket_or_level or its plain
+    version) over a level's buckets as the digest calls them, into fresh
+    core-space outputs, visited restored before each pass; and the
+    pass's (frontier, visited, masks, sum)."""
+    f, mask = lv["f"], lv["mask"]
+    dev, width = f.device, f.shape[1]
+    fr = torch.zeros((n_rows + 1, width), dtype=torch.int32, device=dev)
+    vis = torch.zeros_like(fr)
+    om = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    tot = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def reset():
+        if not lv["level1"]:
+            vis.copy_(lv["vis0"])
+        tot.zero_()
+
+    def one_pass():
+        for c in lv["calls"]:
+            if lv["level1"]:
+                fn(f, mask, c["in_nb"], fr, vis, om, tot, **c["kw"])
+            else:
+                sl = slice(c["offset"], c["offset"] + c["in_nb"].shape[0])
+                fn(f, mask, c["in_nb"], fr[sl], vis[sl], om[sl], tot)
+
+    return timed_passes(one_pass, reset, reps, flush), (fr, vis, om, tot)
+
+
+def unfused_level(kernels, lv, buckets, row_slots, vis):
+    """The level as the digest ran it before the fused kernel (the
+    unfused path), composed here only as the fused level's yardstick:
+    bucket_or over the buckets, then PyTorch's and-not, or and SWAR
+    popcount, and
+    at level 1 the boundary permutation into core row order. `vis` is
+    the visited rows before a deeper level, updated in place. Returns
+    (frontier, visited, sum)."""
+    f = lv["f"]
+    dev, width = f.device, f.shape[1]
+    ncov = row_slots.numel()
+    if lv["level1"]:
+        reach1 = torch.empty((ncov, width), dtype=torch.int32, device=dev)
+        for b in buckets:
+            kernels.bucket_or(f, b.in_nb,
+                              out=reach1[b.offset:b.offset + b.in_nb.shape[0]])
+        seeds_core = f[:ncov]
+        new = reach1.bitwise_and_(~seeds_core)
+        total = kernels.popcount_sum(new)
+        vis_s = seeds_core | new
+        rows = row_slots.long()
+        zrow = torch.zeros((1, width), dtype=torch.int32, device=dev)
+        return (torch.cat([new[rows], zrow]), torch.cat([vis_s[rows], zrow]),
+                total)
+    reach = torch.empty((ncov + 1, width), dtype=torch.int32, device=dev)
+    reach[ncov] = 0
+    for b in buckets:
+        kernels.bucket_or(f, b.in_nb,
+                          out=reach[b.offset:b.offset + b.in_nb.shape[0]])
+    frontier = reach.bitwise_and_(~vis)
+    vis |= frontier
+    return frontier, vis, kernels.popcount_sum(frontier)
+
+
+def bfs_plane(dev, card: str) -> list[dict]:
     """Phases 3-7: the batched BFS traversal plane. Returns the kernels
-    line's entry of bucket_or."""
+    line's entries of bucket_or and bucket_or_level."""
     from dgraph_tpu_torch.bench import bfs
     from dgraph_tpu_torch.ops import kernels
     from dgraph_tpu_torch.ops import bitgraph as bg
 
     # -- 3. kernels against their plain versions ---------------------------
     worst = check_kernel_shapes(kernels, dev, card)
+    worst_level = check_level_shapes(kernels, dev, card)
 
     # -- 4. the main path at the reference regime --------------------------
     t0 = time.perf_counter()
@@ -340,38 +604,54 @@ def bfs_plane(dev, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.bucket_or.launches = 0
+    kernels.bucket_or_level.launches = 0
     t0 = time.perf_counter()
     sums0_t, col0 = digest(slot_mats[0])
     sums0 = sums0_t.cpu().numpy()
     first_s = time.perf_counter() - t0
-    per_batch = kernels.bucket_or.launches
+    per_batch = kernels.bucket_or_level.launches
     times, _ = bfs.run(digest, slot_mats[1:], bfs.PIPE)
     torch.cuda.synchronize()
-    launches = kernels.bucket_or.launches
+    launches = kernels.bucket_or_level.launches
+    digest_or = kernels.bucket_or.launches
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    want_per_batch = len(badj.buckets) + (bfs.DEPTH - 1) * len(core.buckets)
+    # one launch a bucket and level, split buckets included
+    full_l, core_l = len(badj.buckets), len(core.buckets)
+    want_per_batch = full_l + (bfs.DEPTH - 1) * core_l
     if per_batch != want_per_batch:
-        raise AssertionError(f"{per_batch} launches per batch, expected "
-                             f"{want_per_batch}")
+        raise AssertionError(f"{per_batch} bucket_or_level launches per "
+                             f"batch, expected {want_per_batch}")
     if launches == 0 or launches != n_mats * want_per_batch:
-        raise AssertionError(f"the digest launched bucket_or {launches} "
-                             f"times over {n_mats} batches, expected "
-                             f"{n_mats * want_per_batch}")
+        raise AssertionError(f"the digest launched bucket_or_level "
+                             f"{launches} times over {n_mats} batches, "
+                             f"expected {n_mats * want_per_batch}")
+    if digest_or != 0:
+        raise AssertionError(f"the digest launched bucket_or {digest_or} "
+                             f"times, expected 0")
     # the per-level reach path, counted on its own
     kernels.bucket_or.launches = 0
+    kernels.bucket_or_level.launches = 0
     reach = bg.bfs_bits_reach_batched(badj, reach_seeds, bfs.DEPTH)
     torch.cuda.synchronize()
     reach_launches = kernels.bucket_or.launches
-    if reach_launches != bfs.DEPTH * len(badj.buckets):
+    if reach_launches != bfs.DEPTH * len(badj.buckets) or \
+            kernels.bucket_or_level.launches:
         raise AssertionError(f"bfs_bits_reach_batched launched bucket_or "
                              f"{reach_launches} times, expected "
-                             f"{bfs.DEPTH * len(badj.buckets)}")
+                             f"{bfs.DEPTH * len(badj.buckets)}, and "
+                             f"bucket_or_level "
+                             f"{kernels.bucket_or_level.launches} times")
     batch_ms = sum(times) * 1e3 / (len(times) * bfs.PIPE)
     median_ms = float(np.median(times)) * 1e3 / bfs.PIPE
-    log(f"bucket_or launches: digest {per_batch} per batch, {launches} "
-        f"over {n_mats} batches ({n_mats} x {per_batch}); "
-        f"bfs_bits_reach_batched {reach_launches} "
-        f"({bfs.DEPTH} x {len(badj.buckets)}) | {card}")
+    n_split = sum(b.degree > kernels.LEVEL_CHUNK
+                  for b in badj.buckets + core.buckets)
+    log(f"bucket_or_level launches: digest {per_batch} per batch ({full_l} "
+        f"buckets at level 1 + {bfs.DEPTH - 1} x {core_l} core buckets, one "
+        f"a bucket; {n_split} of the {full_l + core_l} split across warps), "
+        f"{launches} over {n_mats} batches; the digest launched "
+        f"bucket_or {digest_or} times; bfs_bits_reach_batched launched "
+        f"bucket_or {reach_launches} times ({bfs.DEPTH} x "
+        f"{len(badj.buckets)}) | {card}")
     log(f"first batch {first_s:.3f} s; sustained {batch_ms:.3f} ms/batch "
         f"({bfs.PIPE} in flight, {len(times) * bfs.PIPE} batches over "
         f"{sum(times):.4f} s; median group {median_ms:.3f} ms/batch, "
@@ -382,18 +662,23 @@ def bfs_plane(dev, card: str) -> dict:
     # -- 5. answers --------------------------------------------------------
     calls = []
 
-    def recorded_plain(f, in_nb, out):
-        calls.append((f, in_nb))
-        return kernels.bucket_or_reference(f, in_nb, out)
+    def recorded_plain(f, mask, in_nb, frontier, visited, out_mask, total,
+                       **kw):
+        c = {"f": f, "mask": mask, "in_nb": in_nb, "kw": kw}
+        if kw.get("seeds") is None:
+            c["vis0"] = visited.clone()      # updated in place below
+        calls.append(c)
+        kernels.bucket_or_level_reference(f, mask, in_nb, frontier, visited,
+                                          out_mask, total, **kw)
 
     # the same digest with the plain version as its per-bucket step
     plain = bg.make_bfs_digest_batched(badj, core, bfs.DEPTH, batch,
                                        bfs.SEEDS)
-    bg.bucket_or = recorded_plain
+    bg.bucket_or_level = recorded_plain
     try:
         sums_p, col0_p = plain(slot_mats[0])
     finally:
-        bg.bucket_or = kernels.bucket_or
+        bg.bucket_or_level = kernels.bucket_or_level
     if sums0.shape != (bfs.DEPTH,) or \
             tuple(col0.shape) != (core.n_core + 1, 1):
         raise AssertionError(f"digest shapes {sums0.shape} "
@@ -417,41 +702,98 @@ def bfs_plane(dev, card: str) -> dict:
                                      f"level {lvl} != numpy_bfs")
     log(f"answers: counts of queries 0..31 = numpy_bfs {counts[:8]}...; "
         f"per-level uid sets of {REACH_QUERIES} queries = numpy_bfs")
+    del plain, sums_p, col0_p
 
-    # -- 6. per-level kernel time, plain time and bound --------------------
-    levels = level_records(calls, {id(b.in_nb): b.offset
-                                   for b in badj.buckets + core.buckets})
+    # -- 6. per level: the fused kernel, the unfused path, plain, bounds ------
+    levels = digest_levels(calls, {id(b.in_nb): b.offset
+                                   for b in badj.buckets + core.buckets},
+                           core.n_core)
     del calls
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for i, (f, recs) in enumerate(levels):
-        k_ms, k_out = time_level(kernels.bucket_or, f, recs, KERNEL_REPS)
-        p_ms, p_out = time_level(kernels.bucket_or_reference, f, recs,
-                                 PLAIN_REPS)
-        err = int((k_out.long() - p_out.long()).abs().max())
+    ncov = core.n_core
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    tot = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "unfused_ms",
+                            "or_ms", "or_plain_ms", "or_bound_ms")}
+    for i, lv in enumerate(levels):
+        f = lv["f"]
+        buckets = badj.buckets if lv["level1"] else core.buckets
+        k_ms, (fr, vis, om, k_sum) = time_fused_level(
+            kernels.bucket_or_level, lv, ncov, KERNEL_REPS, flush)
+        p_ms, p_out = time_fused_level(kernels.bucket_or_level_reference,
+                                       lv, ncov, PLAIN_REPS, flush)
+        for got, want, what in zip((fr, vis, om, k_sum), p_out,
+                                   ("frontier", "visited", "masks", "sum")):
+            if not torch.equal(got, want):
+                raise AssertionError(f"level {i + 1}: bucket_or_level != "
+                                     f"plain version ({what})")
+        del p_out
+        # the unfused path on the same inputs, and its answer
+        vis_u = None if lv["level1"] else torch.empty_like(lv["vis0"])
+        out_u = {}
+
+        def reset_u():
+            if vis_u is not None:
+                vis_u.copy_(lv["vis0"])
+
+        def run_u():
+            out_u["res"] = unfused_level(kernels, lv, buckets,
+                                         core.row_slots, vis_u)
+
+        unfused_ms = timed_passes(run_u, reset_u, KERNEL_REPS, flush)
+        fr_u, vis_u_out, sum_u = out_u.pop("res")
+        if not (torch.equal(fr_u, fr) and torch.equal(vis_u_out, vis) and
+                int(sum_u) == int(k_sum)):
+            raise AssertionError(f"level {i + 1}: the fused level != the "
+                                 f"unfused path")
+        del fr_u, vis_u_out, vis_u
+        # bucket_or alone over the level (the unfused path's kernel)
+        recs = [(b.in_nb, b.offset) for b in buckets]
+        b_ms, b_out = time_level(kernels.bucket_or, f, recs, KERNEL_REPS)
+        bp_ms, bp_out = time_level(kernels.bucket_or_reference, f, recs,
+                                   PLAIN_REPS)
+        err = int((b_out != bp_out).sum())
         worst = max(worst, err)
         if err:
-            raise AssertionError(f"level {i + 1}: kernel != plain version")
-        b_ms = level_bound_ms(f, recs)
-        tot["ms"] += k_ms
-        tot["plain_ms"] += p_ms
-        tot["bound_ms"] += b_ms
-        log(f"level {i + 1}: {len(recs)} bucket_or launches over "
-            f"{f.shape[0]} x {f.shape[1]} words: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms (bytes) | {card}")
-        del k_out, p_out
+            raise AssertionError(f"level {i + 1}: bucket_or != plain version")
+        del b_out, bp_out
+        b_bound = level_bound_ms(f, recs)
+        n_bound = fused_level_bound_ms(kernels, lv, om)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", n_bound),
+                       ("unfused_ms", unfused_ms), ("or_ms", b_ms),
+                       ("or_plain_ms", bp_ms), ("or_bound_ms", b_bound)):
+            tot[key] += v
+        log(f"level {i + 1}: {len(lv['calls'])} buckets over {f.shape[0]} x "
+            f"{f.shape[1]} words, sum {int(k_sum)}: bucket_or_level "
+            f"{k_ms:.4f} ms, unfused path (bucket_or + PyTorch epilogue) "
+            f"{unfused_ms:.4f} ms of which bucket_or {b_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {n_bound:.4f} ms (bytes; bucket_or's "
+            f"whole-row bound {b_bound:.4f} ms, its plain version "
+            f"{bp_ms:.4f} ms) | {card}")
+        del fr, vis, om
+    log(f"levels 1-{len(levels)}: bucket_or_level {tot['ms']:.4f} ms, "
+        f"unfused path {tot['unfused_ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms | {card}")
+    del levels, flush
+    torch.cuda.empty_cache()
 
     # -- 7. device time by kernel ------------------------------------------
     profile_window(lambda: bfs.run(digest, slot_mats[1:1 + bfs.PIPE],
                                    bfs.PIPE),
                    bfs.PIPE, "batches", card)
 
-    return {"name": "bucket_or", "route": "cuda",
-            "source": "dgraph_tpu_torch/csrc/bucket_or.cu",
-            "replaces": "dgraph_tpu/ops/pallas_kernels.py:38",
-            "launches": launches, "max_abs_err": worst,
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+    return [{"name": "bucket_or", "route": "cuda",
+             "source": "dgraph_tpu_torch/csrc/bucket_or.cu",
+             "replaces": "dgraph_tpu/ops/pallas_kernels.py:38",
+             "launches": reach_launches, "max_abs_err": worst,
+             "ms": tot["or_ms"], "plain_ms": tot["or_plain_ms"],
+             "bound_ms": tot["or_bound_ms"], "bound_by": "bytes",
+             "library_ms": None},
+            {"name": "bucket_or_level", "route": "cuda",
+             "source": "dgraph_tpu_torch/csrc/bucket_or.cu",
+             "replaces": "dgraph_tpu/ops/pallas_kernels.py:38",
+             "launches": launches, "max_abs_err": worst_level,
+             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+             "library_ms": None}]
 
 
 # -- the vector search plane (phases 8-12) ----------------------------------

@@ -26,6 +26,7 @@ import torch
 from dgraph_tpu_torch.ops.bitgraph import (
     BitAdjacency, CoreAdjacency, uid_lists_to_seed_slots,
 )
+from dgraph_tpu_torch.ops.kernels import LEVEL_CHUNK
 
 N_NODES = 2_000_000
 N_EDGES = 21_000_000
@@ -110,13 +111,19 @@ def pack_seed_slots(badj: BitAdjacency, seed_mat: np.ndarray, batch: int,
 def digest_bytes(badj: BitAdjacency, core: CoreAdjacency,
                  batch: int) -> int:
     """Device bytes one digest call holds at its peak, counted high: the
-    seed bitmap [N+1, W], six core-space [n_core+1, W] arrays (reach,
-    frontier, visited, a complement and the popcount's temporaries) and
-    the adjacency."""
+    seed bitmap [N+1, W] and its masks, three core-space [n_core+1, W]
+    arrays (frontier, the next frontier, visited) and two of masks, the
+    scratch (reach and tickets) of the largest bucket split along its
+    degree, and the adjacency. The fused level step keeps no reach array
+    and no popcount temporaries."""
     W = (batch + 31) // 32
+    buckets = badj.buckets + core.buckets
     core_arr = (core.n_core + 1) * W * 4
-    adj = sum(b.in_nb.numel() * 4 for b in badj.buckets + core.buckets)
-    return (badj.n_slots + 1) * W * 4 + 6 * core_arr + adj
+    split = max([b.in_nb.shape[0] for b in buckets if b.degree > LEVEL_CHUNK],
+                default=0)
+    adj = sum(b.in_nb.numel() * 4 for b in buckets)
+    return (badj.n_slots + 1) * (W + 1) * 4 + 3 * core_arr + \
+        2 * (core.n_core + 1) * 4 + split * (W + 1) * 4 + adj
 
 
 def fit_batch(badj: BitAdjacency, core: CoreAdjacency, batch: int,

@@ -13,7 +13,8 @@ matrices) is numpy, copied from the reference. The device half works on
 torch tensors on the device the adjacency was built for: plain
 functions closed over the adjacency, with the per-bucket gather-OR in
 `ops.kernels.bucket_or` (a CUDA kernel on the card, its plain version on
-the CPU).
+the CPU); the serving digest runs each bucket of a level through the
+fused `ops.kernels.bucket_or_level` instead.
 
 Frontier bitmaps are int32[N+1, W] words (bit b of word w = query
 32*w+b), the bit pattern of the reference's uint32 words. Row N is the
@@ -29,13 +30,12 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch.backend import resolve_device
-from dgraph_tpu_torch.ops.kernels import bucket_or
+from dgraph_tpu_torch.ops.kernels import (
+    bucket_or, bucket_or_level, segment_words, word_bits,
+)
+from dgraph_tpu_torch.ops.kernels import popcount_sum  # noqa: F401 (API)
 
 INT32_INF = np.int32(2**31 - 1)
-
-# bit b of a word, as int32: the uint32 1 << b with its bit pattern kept
-_BITS = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32)) \
-    .view(np.int32)
 
 
 @dataclass
@@ -425,22 +425,6 @@ def make_frontier_counts_batched(n_queries: int) -> Callable:
     return counts
 
 
-def popcount_sum(words: torch.Tensor) -> torch.Tensor:
-    """Total set bits of an int32 word tensor [R, W], as an int64 scalar.
-
-    SWAR popcount kept in non-negative int32: the sign bit is counted
-    apart, so no step overflows. Rows are summed in int32 (at most
-    32 * W each): a sum of the whole tensor into int64 would first copy
-    it to int64."""
-    low = words & 0x7FFFFFFF
-    x = (low & 0x55555555) + ((low >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    x = x + (x >> 8)
-    x = ((x + (x >> 16)) & 0x3F) + ((words >> 31) & 1)
-    return x.sum(dim=-1, dtype=torch.int32).sum(dtype=torch.int64)
-
-
 # -- core-space digest kernels -----------------------------------------------
 #
 # Only slots with in-degree > 0 can appear in levels >= 1, and those are
@@ -461,13 +445,22 @@ class CoreAdjacency:
     grouped by core-degree class, so the per-bucket concat order IS
     the core frontier layout and deep levels need no permutation.
     in_nb entries are ROW POSITIONS of source slots (dummy = n_core);
-    `row_slots[r]` is the covered slot living in row r, used once at
-    the level-1 boundary to permute slot-ordered bitmaps into row
-    order."""
+    `row_slots[r]` is the covered slot living in row r, and its inverse
+    `slot_rows[s]` the row of covered slot s, where level 1 of the digest
+    writes that slot's results."""
 
     buckets: list[RevBucket]
     row_slots: torch.Tensor          # [n_core] int32
     n_core: int
+    slot_rows: torch.Tensor          # [n_core] int32, row_slots' inverse
+
+
+def _core(buckets: list[RevBucket], row_slots: np.ndarray, ncore: int,
+          device: torch.device) -> CoreAdjacency:
+    slot_rows = np.empty(ncore, np.int32)
+    slot_rows[row_slots] = np.arange(ncore, dtype=np.int32)
+    return CoreAdjacency(buckets, _to_device(row_slots, device), ncore,
+                         _to_device(slot_rows, device))
 
 
 def build_core_adjacency(badj: BitAdjacency) -> CoreAdjacency:
@@ -477,8 +470,7 @@ def build_core_adjacency(badj: BitAdjacency) -> CoreAdjacency:
     ncov = badj.n_covered
     device = badj.device
     if ncov == 0 or not badj.buckets:
-        return CoreAdjacency([], torch.zeros(0, dtype=torch.int32,
-                                             device=device), ncov)
+        return _core([], np.zeros(0, np.int32), ncov, device)
     dsts, srcs = [], []
     for b in badj.buckets:
         nb = b.in_nb.cpu().numpy()
@@ -512,7 +504,7 @@ def build_core_adjacency(badj: BitAdjacency) -> CoreAdjacency:
         nb[rp[sel] - offset, posin[sel]] = srco[sel]
         buckets.append(RevBucket(_to_device(nb, device), None, c, offset))
         offset += m
-    return CoreAdjacency(buckets, _to_device(row_slots, device), ncov)
+    return _core(buckets, row_slots, ncov, device)
 
 
 def core_from_arrays(d: dict[str, np.ndarray],
@@ -526,11 +518,12 @@ def core_from_arrays(d: dict[str, np.ndarray],
     ncore = int(d["n_core"])
     row_slots = np.asarray(d["row_slots"], np.int32)
     if row_slots.shape != (ncore,) or (ncore and (
-            row_slots.min() < 0 or row_slots.max() >= ncore)):
-        raise ValueError(f"row_slots must be {ncore} slots in "
-                         f"[0, {ncore})")
+            row_slots.min() < 0 or row_slots.max() >= ncore
+            or not (np.bincount(row_slots, minlength=ncore) == 1).all())):
+        raise ValueError(f"row_slots must be a permutation of the {ncore} "
+                         f"slots in [0, {ncore})")
     buckets = _buckets_from_arrays(d, ncore, ncore, device)
-    return CoreAdjacency(buckets, _to_device(row_slots, device), ncore)
+    return _core(buckets, row_slots, ncore, device)
 
 
 def uid_lists_to_seed_slots(badj: BitAdjacency,
@@ -564,6 +557,28 @@ def uid_lists_to_seed_slots(badj: BitAdjacency,
     return out
 
 
+def seed_masks(seed_slots: torch.Tensor, n_rows: int,
+               n_words: int) -> torch.Tensor:
+    """Exact occupancy masks (`kernels.segment_masks`) of the seed bitmap
+    the digest packs from int32[B, S] seed slots, int32[n_rows] with the
+    dummy row n_rows - 1 at 0, built from the slots alone: query q sets a
+    bit in segment (q // 32) // segment_words(n_words) of each of its seed
+    rows. Only the first of equal (row, segment) pairs adds its bit, so
+    the int32 add is an OR; a sort, not `torch.unique`, finds them, since
+    unique's data-dependent size would make the host wait on the card."""
+    dev = seed_slots.device
+    b = seed_slots.shape[0]
+    seg = torch.arange(b, device=dev) // 32 // segment_words(n_words)
+    key = torch.sort((seed_slots.long() * 32 + seg[:, None]).reshape(-1))[0]
+    first = torch.ones_like(key, dtype=torch.int32)
+    first[1:] = key[1:] != key[:-1]
+    bits = word_bits(dev)
+    mask = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    mask.index_add_(0, key // 32, bits[key % 32] * first)
+    mask[n_rows - 1].zero_()
+    return mask
+
+
 def make_bfs_digest_batched(badj: BitAdjacency, core: CoreAdjacency,
                             depth: int, n_queries: int,
                             n_seeds: int) -> Callable:
@@ -573,18 +588,30 @@ def make_bfs_digest_batched(badj: BitAdjacency, core: CoreAdjacency,
     word column).
 
     The packed frontier is built on the device (scatter-add of one bit
-    per (query, seed)), so only the [B, S] slot matrix crosses the host
-    link per batch. Level 1 gathers the full adjacency once; every
-    deeper level runs in core slot space. The first-word column lets the
-    caller check queries 0..31 via make_frontier_counts_batched without
-    pulling a full bitmap."""
+    per (query, seed)), with its occupancy masks from the slots, so only
+    the [B, S] slot matrix crosses the host link per batch. Every bucket
+    of every level is one fused `bucket_or_level` (gather-OR, and-not,
+    visited update, popcount into the level's sum, the next frontier's
+    masks). Level 1 gathers the full adjacency once and writes straight
+    into core row order (`core.slot_rows`); every deeper level runs in
+    core row space, whose bucket layout IS the next frontier layout, with
+    visited updated in place. The first-word column lets the caller check
+    queries 0..31 via make_frontier_counts_batched without pulling a full
+    bitmap."""
     N, ncov = badj.n_slots, badj.n_covered
     W = (n_queries + 31) // 32
 
-    def level_into(f, buckets, reach):
-        for b in buckets:
-            rows = b.in_nb.shape[0]
-            bucket_or(f, b.in_nb, out=reach[b.offset:b.offset + rows])
+    def core_arrays(dev):
+        """An uninitialised core-space frontier [ncov+1, W] and its masks
+        [ncov+1] with the dummy row ncov zeroed; the level's buckets
+        write every other row. Rows are zeroed with zero_(): assigning a
+        Python 0 copies it from the host, which waits for the card's
+        queue to drain."""
+        words = torch.empty((ncov + 1, W), dtype=torch.int32, device=dev)
+        words[ncov].zero_()
+        mask = torch.empty(ncov + 1, dtype=torch.int32, device=dev)
+        mask[ncov].zero_()
+        return words, mask
 
     def digest(seed_slots: torch.Tensor):
         if tuple(seed_slots.shape) != (n_queries, n_seeds):
@@ -592,7 +619,7 @@ def make_bfs_digest_batched(badj: BitAdjacency, core: CoreAdjacency,
                              f", got {tuple(seed_slots.shape)}")
         dev = seed_slots.device
         q = torch.arange(n_queries, device=dev)
-        bit = torch.from_numpy(_BITS).to(dev)[q % 32]
+        bit = word_bits(dev)[q % 32]
         word = q // 32
         f = torch.zeros((N + 1, W), dtype=torch.int32, device=dev)
         # ADD equals OR: uid_lists_to_seed_slots made (query, slot)
@@ -600,30 +627,27 @@ def make_bfs_digest_batched(badj: BitAdjacency, core: CoreAdjacency,
         f.index_put_((seed_slots.reshape(-1).long(),
                       word.repeat_interleave(n_seeds)),
                      bit.repeat_interleave(n_seeds), accumulate=True)
-        f[N] = 0                          # dummy slot absorbs padding
-        reach1 = torch.empty((ncov, W), dtype=torch.int32, device=dev)
-        level_into(f, badj.buckets, reach1)
-        seeds_core = f[:ncov]
-        new = reach1.bitwise_and_(~seeds_core)
-        sums = [popcount_sum(new)]
-        # one boundary permutation into core ROW space; every deeper
-        # level's bucket layout then IS the next frontier layout
-        vis_s = seeds_core | new
-        del f, seeds_core
-        rows = core.row_slots.long()
-        zrow = torch.zeros((1, W), dtype=torch.int32, device=dev)
-        frontier = torch.cat([new[rows], zrow])
-        visited = torch.cat([vis_s[rows], zrow])
-        del new, vis_s
-        for _ in range(depth - 1):
-            reach = torch.empty((ncov + 1, W), dtype=torch.int32,
-                                device=dev)
-            reach[ncov] = 0
-            level_into(frontier, core.buckets, reach)
-            frontier = reach.bitwise_and_(~visited)
-            visited |= frontier
-            sums.append(popcount_sum(frontier))
-        return torch.stack(sums) % (1 << 32), frontier[:, :1]
+        f[N].zero_()                      # dummy slot absorbs padding
+        fmask = seed_masks(seed_slots, N + 1, W)
+        sums = torch.zeros(max(depth, 1), dtype=torch.int64, device=dev)
+        frontier, fr_mask = core_arrays(dev)
+        visited = torch.empty_like(frontier)
+        visited[ncov].zero_()
+        for b in badj.buckets:
+            sl = slice(b.offset, b.offset + b.in_nb.shape[0])
+            bucket_or_level(f, fmask, b.in_nb, frontier, visited, fr_mask,
+                            sums[:1], seeds=f[sl], seeds_mask=fmask[sl],
+                            rows=core.slot_rows[sl])
+        del f, fmask
+        for lvl in range(1, depth):
+            nxt, nxt_mask = core_arrays(dev)
+            for b in core.buckets:
+                sl = slice(b.offset, b.offset + b.in_nb.shape[0])
+                bucket_or_level(frontier, fr_mask, b.in_nb, nxt[sl],
+                                visited[sl], nxt_mask[sl],
+                                sums[lvl:lvl + 1])
+            frontier, fr_mask = nxt, nxt_mask
+        return sums % (1 << 32), frontier[:, :1]
 
     return digest
 

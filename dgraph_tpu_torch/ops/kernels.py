@@ -30,6 +30,7 @@ against the reference package. Each wrapper counts its launches in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -41,18 +42,31 @@ from dgraph_tpu_torch.ops import _build
 # moderate degree runs without atomics, short enough that a hub row of
 # millions of in-neighbours spreads over thousands of blocks
 CHUNK = 256
+# in-neighbours one warp of bucket_or_level gathers: eight batches of 32,
+# whose indices and masks it loads at once (kChunk in csrc/bucket_or.cu,
+# which refuses another value); a longer row is split across warps
+LEVEL_CHUNK = 256
+# rows of a frontier bucket_or_level gathers from: its pair list packs a
+# row and a segment into one 32-bit word
+LEVEL_MAX_ROWS = 1 << 27
 # the grid's y dimension (chunks of one row) is at most 65535
 _MAX_CHUNKS = 65535
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel's library, built by nvcc at first use."""
+    """The gather-OR kernels' library (`csrc/bucket_or.cu`), built by nvcc
+    at first use."""
     lib = _build.load("bucket_or")
     fn = lib.bucket_or_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.bucket_or_level_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 5 + \
+            [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -70,29 +84,39 @@ def _or_reduce_dim1(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0]
 
 
-def bucket_or_reference(f: torch.Tensor, in_nb: torch.Tensor,
-                        out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of the kernel: out[m] = OR_d f[in_nb[m, d]].
+def _gather_or(f: torch.Tensor, in_nb: torch.Tensor,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """OR_d f[in_nb[m, d]] -> [M, W]; with `mask`, each gathered row's
+    segments whose mask bit is clear count as zero.
 
     Direct counterpart of `_gather_or` (`dgraph_tpu/ops/bitgraph.py:325`):
     ORs the gathered rows in chunks of <= 8 along the degree axis so no
     [M, D, W] intermediate is made, then reduces the chunks."""
     m, degree = in_nb.shape
+    width = f.shape[1]
     if degree == 0:
-        res = torch.zeros((m, f.shape[1]), dtype=f.dtype, device=f.device)
-    else:
-        dc = next(c for c in (8, 6, 4, 3, 2, 1) if degree % c == 0)
-        nb = in_nb.reshape(m * (degree // dc), dc).long()
-        acc = f[nb[:, 0]]
-        for d in range(1, dc):
-            acc |= f[nb[:, d]]
-        if degree > dc:
-            acc = _or_reduce_dim1(acc.reshape(m, degree // dc, f.shape[1]))
-        res = acc
-    if out is None:
-        return res
-    out.copy_(res)
-    return out
+        return torch.zeros((m, width), dtype=f.dtype, device=f.device)
+
+    def rows(i):
+        r = f[i]
+        if mask is not None:
+            r &= _segment_fill(mask[i], width)
+        return r
+
+    dc = next(c for c in (8, 6, 4, 3, 2, 1) if degree % c == 0)
+    nb = in_nb.reshape(m * (degree // dc), dc).long()
+    acc = rows(nb[:, 0])
+    for d in range(1, dc):
+        acc |= rows(nb[:, d])
+    if degree > dc:
+        acc = _or_reduce_dim1(acc.reshape(m, degree // dc, width))
+    return acc
+
+
+def bucket_or_reference(f: torch.Tensor, in_nb: torch.Tensor,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the kernel: out[m] = OR_d f[in_nb[m, d]]."""
+    return _into(_gather_or(f, in_nb), out)
 
 
 def _check(f: torch.Tensor, in_nb: torch.Tensor,
@@ -154,6 +178,210 @@ def bucket_or(f: torch.Tensor, in_nb: torch.Tensor,
 
 
 bucket_or.launches = 0
+
+
+# -- the fused BFS level step (csrc/bucket_or.cu, bucket_or_level_kernel) -----
+
+# bit b of a word, as int32: the uint32 1 << b with its bit pattern kept
+WORD_BITS = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32)) \
+    .view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def word_bits(device: torch.device) -> torch.Tensor:
+    """WORD_BITS as an int32 [32] tensor on `device`, copied there once:
+    a copy from host memory makes the host wait for the card's queue."""
+    return torch.from_numpy(WORD_BITS).to(device)
+
+
+def segment_words(width: int) -> int:
+    """Words in one occupancy segment of a W-word row: 32 (128 bytes, one
+    L2 line), widened to 32 * ceil(W / 1024) so a row has at most 32
+    segments and its mask fits one int32 word."""
+    return 32 * max(1, -(-width // 1024))
+
+
+def _segment_of_word(width: int, device) -> torch.Tensor:
+    return torch.arange(width, dtype=torch.int32, device=device) \
+        // segment_words(width)
+
+
+def _segment_fill(mask: torch.Tensor, width: int) -> torch.Tensor:
+    """int32 [..., W]: all ones on the words whose segment's bit is set in
+    `mask` [...], zero elsewhere (>> on int32 is arithmetic: mask it)."""
+    seg = _segment_of_word(width, mask.device)
+    return -((mask[..., None] >> seg) & 1)
+
+
+def segment_masks(words: torch.Tensor) -> torch.Tensor:
+    """Exact occupancy masks of bitmap rows: int32 [R, W] -> int32 [R],
+    bit s set iff segment s (`segment_words(W)` words) of the row is
+    non-zero. The bits are distinct, so an int32 sum is their OR."""
+    r, width = words.shape
+    nseg = -(-width // segment_words(width))
+    seg = _segment_of_word(width, words.device)
+    nz = torch.zeros((r, nseg), dtype=torch.int32, device=words.device)
+    nz.index_add_(1, seg, (words != 0).to(torch.int32))
+    bits = word_bits(words.device)[:nseg]
+    return ((nz > 0).to(torch.int32) * bits).sum(dim=1, dtype=torch.int32)
+
+
+def popcount_sum(words: torch.Tensor) -> torch.Tensor:
+    """Total set bits of an int32 word tensor [R, W], as an int64 scalar.
+
+    SWAR popcount kept in non-negative int32: the sign bit is counted
+    apart, so no step overflows. Rows are summed in int32 (at most
+    32 * W each): a sum of the whole tensor into int64 would first copy
+    it to int64."""
+    low = words & 0x7FFFFFFF
+    x = (low & 0x55555555) + ((low >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = ((x + (x >> 16)) & 0x3F) + ((words >> 31) & 1)
+    return x.sum(dim=-1, dtype=torch.int32).sum(dtype=torch.int64)
+
+
+def bucket_or_level_reference(f, mask, in_nb, frontier, visited, out_mask,
+                              total, *, seeds=None, seeds_mask=None,
+                              rows=None) -> None:
+    """Plain version of `bucket_or_level`, with the kernel's reading of
+    the masks: a gathered row's segment whose bit in `mask` is clear
+    counts as zero, as does a seed segment whose bit in `seeds_mask` is
+    clear. So a wrong mask gives the kernel's wrong answer here too."""
+    reach = _gather_or(f, in_nb, mask)
+    if seeds is None:
+        vis = visited
+    else:
+        vis = seeds & _segment_fill(seeds_mask, f.shape[1])
+    new = reach.bitwise_and_(~vis)
+    res = (new, vis | new, segment_masks(new))
+    for dst, src in zip((frontier, visited, out_mask), res):
+        if rows is None:
+            dst.copy_(src)
+        else:
+            dst[rows.long()] = src
+    total += popcount_sum(new)
+
+
+_LEVEL_ARGS = ("f", "mask", "in_nb", "frontier", "visited", "out_mask",
+               "seeds", "seeds_mask", "rows")
+
+
+def _check_level(f, mask, in_nb, frontier, visited, out_mask, total, seeds,
+                 seeds_mask, rows) -> None:
+    # the digest calls this ~190 times a batch: plain loops over a tuple
+    args = (f, mask, in_nb, frontier, visited, out_mask, seeds, seeds_mask,
+            rows)
+    dev = f.device
+    for k, v in zip(_LEVEL_ARGS, args):
+        if v is None:
+            continue
+        if v.dtype != torch.int32:
+            raise TypeError(f"bucket_or_level takes int32 {k}, got {v.dtype}")
+        if v.device != dev:
+            raise ValueError(f"{k} on {v.device} but f on {dev}")
+        if not v.is_contiguous():
+            raise ValueError(f"bucket_or_level takes contiguous {k}")
+    if total.dtype != torch.int64 or total.numel() != 1:
+        raise TypeError(f"total must be an int64 tensor of one element, "
+                        f"got {total.dtype} {tuple(total.shape)}")
+    if total.device != dev or not total.is_contiguous():
+        raise ValueError(f"total on {total.device}, contiguous "
+                         f"{total.is_contiguous()}, but f on {dev}")
+    if not (seeds is None) == (seeds_mask is None) == (rows is None):
+        raise ValueError("seeds, seeds_mask and rows come together")
+    if f.dim() != 2 or in_nb.dim() != 2:
+        raise ValueError(f"bucket_or_level takes f [rows, W] and in_nb "
+                         f"[M, D], got {tuple(f.shape)} and "
+                         f"{tuple(in_nb.shape)}")
+    if f.shape[0] > LEVEL_MAX_ROWS:
+        raise ValueError(f"bucket_or_level gathers from at most "
+                         f"{LEVEL_MAX_ROWS} rows, got {f.shape[0]}")
+    m, width = in_nb.shape[0], f.shape[1]
+    n_out = m if rows is None else frontier.shape[0]
+    want = ((f.shape[0],), (n_out, width), (n_out, width), (n_out,),
+            (m, width), (m,), (m,))
+    for k, v, shape in zip(_LEVEL_ARGS[1:2] + _LEVEL_ARGS[3:], args[1:2] +
+                           args[3:], want):
+        if v is not None and v.shape != shape:
+            raise ValueError(f"{k} must be {shape}, got {tuple(v.shape)}")
+
+
+def bucket_or_level(f: torch.Tensor, mask: torch.Tensor,
+                    in_nb: torch.Tensor, frontier: torch.Tensor,
+                    visited: torch.Tensor, out_mask: torch.Tensor,
+                    total: torch.Tensor, *,
+                    seeds: torch.Tensor | None = None,
+                    seeds_mask: torch.Tensor | None = None,
+                    rows: torch.Tensor | None = None) -> None:
+    """One bucket of a BFS level, fused with the digest's epilogue. For
+    each row m of in_nb int32 [M, D], o = rows[m] (m without `rows`):
+
+        reach          = OR_d f[in_nb[m, d]]
+        frontier[o]    = reach & ~before[m]
+        visited[o]     = before[m] | frontier[o]
+        out_mask[o]    = segment_masks(frontier[o])
+        total         += popcount(frontier[o])
+
+    f int32 [R, W] is the level's frontier and mask int32 [R] its exact
+    occupancy masks (`segment_masks`; row R-1 the dummy, mask 0). Two
+    modes:
+    - in place (deeper levels): before[m] is visited[m], updated in
+      place; frontier, visited and out_mask are [M, W], [M, W], [M];
+    - level 1, with `seeds` int32 [M, W] and `seeds_mask` [M] (the seed
+      bitmap's rows of the bucket and their masks) and `rows` int32 [M]:
+      before[m] = seeds[m], and the outputs [R', W], [R', W], [R'] are
+      written at row o = rows[m], visited in full.
+    total is one int64 element. Every index must lie in [0, R), and
+    R <= LEVEL_MAX_ROWS.
+
+    On CUDA tensors the kernel runs, one launch a call (a row of degree
+    > LEVEL_CHUNK is split across warps, whose chunks OR into a zeroed
+    scratch row; the row's last chunk runs its epilogue), and
+    `bucket_or_level.launches` counts them; on CPU tensors the plain
+    version runs."""
+    _check_level(f, mask, in_nb, frontier, visited, out_mask, total, seeds,
+                 seeds_mask, rows)
+    kw = dict(seeds=seeds, seeds_mask=seeds_mask, rows=rows)
+    if f.device.type == "cpu":
+        bucket_or_level_reference(f, mask, in_nb, frontier, visited,
+                                  out_mask, total, **kw)
+        return
+    if f.device.type != "cuda":
+        raise ValueError(f"bucket_or_level runs on cuda or cpu, not "
+                         f"{f.device}")
+    m, degree = in_nb.shape
+    width = f.shape[1]
+    if m == 0 or width == 0:
+        return
+    lib = load_library()
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch(mode, scratch=None):
+        err = lib.bucket_or_level_launch(
+            f.data_ptr(), mask.data_ptr(), in_nb.data_ptr(), ptr(seeds),
+            ptr(seeds_mask), ptr(rows), frontier.data_ptr(),
+            visited.data_ptr(), out_mask.data_ptr(), ptr(scratch),
+            total.data_ptr(), f.shape[0], m, degree, width, LEVEL_CHUNK,
+            mode, stream)
+        if err != 0:
+            raise RuntimeError(f"bucket_or_level kernel launch failed: CUDA "
+                               f"error {err} (M={m}, D={degree}, W={width}, "
+                               f"mode={mode})")
+        bucket_or_level.launches += 1
+
+    if degree <= LEVEL_CHUNK:
+        launch(0)
+    else:                       # the split rows' reach, then their tickets
+        launch(1, torch.zeros(m * width + m, dtype=torch.int32,
+                              device=f.device))
+
+
+bucket_or_level.launches = 0
 
 
 def load_score_library() -> ctypes.CDLL:

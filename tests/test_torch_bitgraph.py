@@ -15,6 +15,7 @@ import bench as jax_bench
 from dgraph_tpu.ops import bitgraph as jbg
 from dgraph_tpu_torch.bench import bfs as tbench
 from dgraph_tpu_torch.ops import bitgraph as tbg
+from dgraph_tpu_torch.ops import kernels
 
 CPU = "cpu"
 
@@ -290,6 +291,92 @@ def test_digest_parity(depth):
     assert counts.tolist() == [len(want[q][-1]) for q in range(32)]
 
 
+@pytest.mark.parametrize("n_queries", [37, 100])
+def test_digest_parity_partial_segments_depth_4(n_queries):
+    """B of 37 and 100 leave the last word and segment partial; the hub
+    (uid 1, in-degree > 256) is a row longer than the kernel's chunk."""
+    edges, jb, tb = both("zipf_hub")
+    assert max(b.degree for b in tb.buckets) > 256
+    seeds = seed_lists(edges, n_queries, 3, seed=n_queries)
+    jc, tc = jbg.build_core_adjacency(jb), tbg.build_core_adjacency(tb)
+    jsums, jcol, tsums, tcol = _digest_both(jb, tb, jc, tc, seeds, 4, 3)
+    assert tsums.shape == (4,)
+    np.testing.assert_array_equal(tsums, jsums)
+    np.testing.assert_array_equal(tcol, jcol)
+
+
+def test_digest_runs_every_level_through_the_fused_step(monkeypatch):
+    """One bucket_or_level call a bucket and level, and no bucket_or."""
+    edges, _, tb = both("zipf_hub")
+    tc = tbg.build_core_adjacency(tb)
+    seen = []
+
+    def level(*args, **kw):
+        seen.append(args[2].shape)
+        return kernels.bucket_or_level_reference(*args, **kw)
+
+    def no_or(*args, **kw):
+        raise AssertionError("the digest called bucket_or")
+
+    monkeypatch.setattr(tbg, "bucket_or_level", level)
+    monkeypatch.setattr(tbg, "bucket_or", no_or)
+    slots = torch.from_numpy(tbg.uid_lists_to_seed_slots(
+        tb, seed_lists(edges, 40, 3, seed=2), 3))
+    tbg.make_bfs_digest_batched(tb, tc, 3, 40, 3)(slots)
+    assert seen == [b.in_nb.shape for b in tb.buckets] + \
+        2 * [b.in_nb.shape for b in tc.buckets]
+
+
+@pytest.mark.parametrize("n_queries", [1, 37, 2048, 40_000])
+def test_seed_masks_exact(n_queries):
+    """The masks built from the seed slots equal the exact masks of the
+    bitmap the digest packs from them."""
+    edges, _, tb = both("zipf_hub")
+    seeds = seed_lists(edges, n_queries, 2, seed=n_queries)
+    seeds[0] = np.asarray([seeds[0][0], 4_000_000_000], np.uint32)
+    slots = tbg.uid_lists_to_seed_slots(tb, seeds, 2)
+    assert slots[0, 1] == tb.n_slots               # padding
+    packed = tbg.uids_to_bits_batched(tb, seeds)
+    want = kernels.segment_masks(tbg.words_to_device(packed, CPU))
+    got = tbg.seed_masks(torch.from_numpy(slots), tb.n_slots + 1,
+                         packed.shape[1])
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_core_slot_rows_invert_row_slots(name):
+    _, jb, tb = both(name)
+    for core in (tbg.build_core_adjacency(tb),
+                 tbg.core_from_arrays(
+                     export_core(jbg.build_core_adjacency(jb)), CPU)):
+        rows = core.row_slots.numpy()
+        slot_rows = core.slot_rows.numpy()
+        assert slot_rows.dtype == np.int32
+        np.testing.assert_array_equal(slot_rows[rows],
+                                      np.arange(core.n_core))
+
+
+def test_digest_bytes_counts_the_fused_digest():
+    """The seed bitmap and its masks, three core arrays (frontier, next
+    frontier, visited) and two core masks, the largest split bucket's
+    scratch (reach and tickets) and the adjacency: no reach arrays, no popcount
+    temporaries."""
+    graph = tbench.make_graph(3000, 40000, seed=3)
+    badj = tbg.build_bitadjacency(tbench.csr_to_dict(*graph), device=CPU)
+    core = tbg.build_core_adjacency(badj)
+    B = 4096
+    W = B // 32
+    c = (core.n_core + 1) * W * 4
+    split = max([b.in_nb.shape[0] for b in badj.buckets + core.buckets
+                 if b.degree > kernels.LEVEL_CHUNK], default=0)
+    assert split > 0
+    adj = sum(b.in_nb.numel() * 4 for b in badj.buckets + core.buckets)
+    want = (badj.n_slots + 1) * (W + 1) * 4 + 3 * c + \
+        2 * (core.n_core + 1) * 4 + split * (W + 1) * 4 + adj
+    assert tbench.digest_bytes(badj, core, B) == want
+
+
 def test_digest_parity_empty_graph():
     _, jb, tb = both("empty")
     jc, tc = jbg.build_core_adjacency(jb), tbg.build_core_adjacency(tb)
@@ -381,7 +468,8 @@ def test_state_carried_across(name):
     assert_same_core(jc, tbg.build_core_adjacency(cb))
 
 
-@pytest.mark.parametrize("fault", ["offset", "index", "rows", "row_slots"])
+@pytest.mark.parametrize("fault", ["offset", "index", "rows", "row_slots",
+                                   "row_slots_repeat"])
 def test_from_arrays_rejects_malformed_state(fault):
     _, jb, _ = both("zipf_hub")
     d = export_badj(jb)
@@ -392,10 +480,13 @@ def test_from_arrays_rejects_malformed_state(fault):
         d["buckets.0.in_nb"] = d["buckets.0.in_nb"] + jb.n_slots
     elif fault == "rows":
         d["n_covered"] = np.asarray(jb.n_covered + 1)
-    else:
+    elif fault == "row_slots":
         c["row_slots"] = c["row_slots"][:-1]
+    else:                                   # not a permutation
+        c["row_slots"] = c["row_slots"].copy()
+        c["row_slots"][1] = c["row_slots"][0]
     with pytest.raises(ValueError):
-        if fault == "row_slots":
+        if fault.startswith("row_slots"):
             tbg.core_from_arrays(c, CPU)
         else:
             tbg.bitadjacency_from_arrays(d, CPU)

@@ -6,6 +6,8 @@ The CUDA kernel itself runs only on the card; chip_smoke.py holds it
 against the plain version there.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -138,6 +140,258 @@ def test_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.load("bucket_or")
     assert not list(tmp_path.glob("*.so"))
+
+
+# -- bucket_or_level: the fused BFS level step ---------------------------------
+
+
+def masks_by_hand(words):
+    """uint32 [R, W] -> the exact occupancy mask of each row, a Python
+    int per row, one segment (32 words, widened past W 1,024) at a time."""
+    width = words.shape[1]
+    seg = 32 * max(1, -(-width // 1024))
+    return [sum(1 << s for s in range(-(-width // seg))
+                if row[s * seg:(s + 1) * seg].any()) for row in words]
+
+
+def as_int32(masks):
+    return torch.from_numpy(np.asarray(masks, np.uint32).view(np.int32))
+
+
+def sparse_frontier(n, width, seed):
+    """uint32 [n+1, width] with about one bit a row (some rows empty) and
+    the dummy row n zero."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros((n + 1, width), np.uint32)
+    rows = rng.choice(n, n // 2, replace=False)
+    col = rng.integers(0, 32 * width, len(rows))
+    f[rows, col // 32] = np.uint32(1) << (col % 32).astype(np.uint32)
+    return f, torch.from_numpy(f.view(np.int32).copy())
+
+
+@pytest.mark.parametrize("width", [1, 5, 33, 768, 1100, 2048])
+def test_segment_masks_exact(width):
+    f, ft = sparse_frontier(70, width, seed=width)
+    f[3] = 0xFFFFFFFF                       # every segment, bit 31 too
+    ft = torch.from_numpy(f.view(np.int32).copy())
+    got = kernels.segment_masks(ft)
+    assert got.dtype == torch.int32
+    assert got.numpy().view(np.uint32).tolist() == masks_by_hand(f)
+    assert kernels.segment_words(width) == 32 * max(1, -(-width // 1024))
+
+
+@pytest.mark.parametrize("width", [1, 5, 37, 768, 1100])
+@pytest.mark.parametrize("density", ["sparse", "dense"])
+@pytest.mark.parametrize("row_map", [False, True])
+def test_level_reference_matches_composition(width, density, row_map):
+    """bucket_or_level_reference against the digest's old composition:
+    the gather-OR (the reference's `_gather_or` and `bucket_or_reference`),
+    the and-not, the or, `popcount_sum` and masks computed by hand."""
+    n, m, d = 60, 9, 13
+    if density == "sparse":
+        f, ft = sparse_frontier(n, width, seed=width)
+    else:
+        f, ft = frontier(n, width, seed=width)
+    nb = in_neighbours(n, m, d, seed=width + 1)
+    nb[2] = n                               # an all-padding row
+    rng = np.random.default_rng(width + 2)
+    before = rng.integers(0, 2**32, (m, width), dtype=np.uint32) & \
+        rng.integers(0, 2**32, (m, width), dtype=np.uint32)
+    before_t = torch.from_numpy(before.view(np.int32).copy())
+    reach = np.asarray(_gather_or(jnp.asarray(f), jnp.asarray(nb), d))
+    np.testing.assert_array_equal(
+        kernels.bucket_or_reference(ft, torch.from_numpy(nb)).numpy()
+        .view(np.uint32), reach)
+    new = reach & ~before
+    want_total = 7 + int(kernels.popcount_sum(
+        torch.from_numpy(new.view(np.int32).copy())))
+    assert want_total == 7 + int(np.unpackbits(new.view(np.uint8)).sum())
+
+    n_out = m + 3 if row_map else m
+    rows = rng.permutation(n_out)[:m]
+    frontier_t = torch.full((n_out, width), 7, dtype=torch.int32)
+    visited_t = torch.full((n_out, width), 9, dtype=torch.int32)
+    out_mask = torch.full((n_out,), 5, dtype=torch.int32)
+    total = torch.tensor([7])
+    kw = {}
+    if row_map:
+        kw = dict(seeds=before_t, seeds_mask=as_int32(masks_by_hand(before)),
+                  rows=torch.from_numpy(rows.astype(np.int32)))
+    else:
+        visited_t.copy_(before_t)
+        rows = np.arange(m)
+    kernels.bucket_or_level_reference(ft, as_int32(masks_by_hand(f)),
+                                      torch.from_numpy(nb), frontier_t,
+                                      visited_t, out_mask, total, **kw)
+    got_f = frontier_t.numpy().view(np.uint32)
+    got_v = visited_t.numpy().view(np.uint32)
+    np.testing.assert_array_equal(got_f[rows], new)
+    np.testing.assert_array_equal(got_v[rows], before | new)
+    assert out_mask.numpy().view(np.uint32)[rows].tolist() == \
+        masks_by_hand(new)
+    assert int(total) == want_total
+    untouched = np.setdiff1d(np.arange(n_out), rows)
+    assert (got_f[untouched] == 7).all() and (got_v[untouched] == 9).all()
+    assert (out_mask.numpy()[untouched] == 5).all()
+
+
+def test_level_reference_honours_masks():
+    """A mask bit cleared over a non-zero segment drops that segment from
+    the gather (and a seed segment from visited), as the kernel does: a
+    wrong mask gives a wrong answer on the CPU too."""
+    width, n = 70, 4                        # 3 segments, the last partial
+    f = np.zeros((n + 1, width), np.uint32)
+    f[0, 40] = 1 << 3                       # segment 1 of row 0
+    f[1, 65] = 1 << 31                      # segment 2 of row 1
+    ft = torch.from_numpy(f.view(np.int32).copy())
+    nb = torch.tensor([[0, 1, n]], dtype=torch.int32)
+    exact = as_int32(masks_by_hand(f))
+    assert exact.numpy().view(np.uint32).tolist() == [2, 4, 0, 0, 0]
+
+    def run(mask, seeds_mask=None):
+        fr = torch.zeros((1, width), dtype=torch.int32)
+        vis = torch.zeros((1, width), dtype=torch.int32)
+        om = torch.zeros(1, dtype=torch.int32)
+        total = torch.zeros(1, dtype=torch.int64)
+        kw = {}
+        if seeds_mask is not None:
+            seeds = np.zeros((1, width), np.uint32)
+            seeds[0, 2] = 5                 # segment 0
+            kw = dict(seeds=torch.from_numpy(seeds.view(np.int32)),
+                      seeds_mask=torch.tensor([seeds_mask],
+                                              dtype=torch.int32),
+                      rows=torch.zeros(1, dtype=torch.int32))
+        kernels.bucket_or_level_reference(ft, mask, nb, fr, vis, om, total,
+                                          **kw)
+        return fr.numpy().view(np.uint32), vis.numpy().view(np.uint32), \
+            int(om), int(total)
+
+    fr, _, om, total = run(exact)
+    assert fr[0, 40] == 1 << 3 and fr[0, 65] == 1 << 31
+    assert (om, total) == (6, 2)
+    thinned = exact.clone()
+    thinned[1] = 0                          # row 1's segment 2 cleared
+    fr, _, om, total = run(thinned)
+    assert fr[0, 40] == 1 << 3 and fr[0, 65] == 0
+    assert (om, total) == (2, 1)
+    # a seed segment whose bit is clear is not read either
+    _, vis, _, _ = run(exact, seeds_mask=1)
+    assert vis[0, 2] == 5
+    _, vis, _, _ = run(exact, seeds_mask=0)
+    assert vis[0, 2] == 0
+
+
+def test_level_wrapper_on_cpu_runs_plain_version_without_launch():
+    f, ft = sparse_frontier(30, 7, seed=1)
+    mask = as_int32(masks_by_hand(f))
+    nb = torch.from_numpy(in_neighbours(30, 12, kernels.LEVEL_CHUNK + 3,
+                                        seed=2))         # a split bucket
+    outs = [torch.zeros((12, 7), dtype=torch.int32),
+            torch.zeros((12, 7), dtype=torch.int32),
+            torch.zeros(12, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int64)]
+    want = [t.clone() for t in outs]
+    before = kernels.bucket_or_level.launches
+    kernels.bucket_or_level(ft, mask, nb, *outs)
+    assert kernels.bucket_or_level.launches == before
+    kernels.bucket_or_level_reference(ft, mask, nb, *want)
+    for g, w in zip(outs, want):
+        assert torch.equal(g, w)
+    assert int(outs[3]) > 0
+
+
+@pytest.mark.parametrize("degree", [1, 255, 256, 257, 3_000])
+def test_level_wrapper_split_rows_match_unsplit_plain(degree):
+    """Around the chunk (256 in-neighbours a warp) the CPU route gives the
+    plain version's answer, whatever the split."""
+    f, ft = sparse_frontier(40, 9, seed=degree)
+    f[5] = 0xFFFFFFFF                        # a dense in-neighbour
+    ft = torch.from_numpy(f.view(np.int32).copy())
+    mask = as_int32(masks_by_hand(f))
+    nb = torch.from_numpy(in_neighbours(40, 3, degree, seed=degree + 1))
+    outs = [torch.zeros((3, 9), dtype=torch.int32) for _ in range(2)] + \
+        [torch.zeros(3, dtype=torch.int32),
+         torch.zeros(1, dtype=torch.int64)]
+    kernels.bucket_or_level(ft, mask, nb, *outs)
+    reach = kernels.bucket_or_reference(ft, nb).numpy().view(np.uint32)
+    np.testing.assert_array_equal(outs[0].numpy().view(np.uint32), reach)
+    assert int(outs[3]) == int(np.unpackbits(reach.view(np.uint8)).sum())
+
+
+def _bad_level_inputs(case):
+    a = dict(f=torch.zeros((10, 4), dtype=torch.int32),
+             mask=torch.zeros(10, dtype=torch.int32),
+             in_nb=torch.zeros((3, 2), dtype=torch.int32),
+             frontier=torch.zeros((3, 4), dtype=torch.int32),
+             visited=torch.zeros((3, 4), dtype=torch.int32),
+             out_mask=torch.zeros(3, dtype=torch.int32),
+             total=torch.zeros(1, dtype=torch.int64))
+    kw = {}
+    if case == "f_dtype":
+        a["f"] = a["f"].to(torch.int64)
+    elif case == "mask_shape":
+        a["mask"] = a["mask"][:9]
+    elif case == "out_shape":
+        a["frontier"] = torch.zeros((3, 5), dtype=torch.int32)
+    elif case == "out_mask_shape":
+        a["out_mask"] = torch.zeros(4, dtype=torch.int32)
+    elif case == "total_dtype":
+        a["total"] = torch.zeros(1, dtype=torch.int32)
+    elif case == "total_size":
+        a["total"] = torch.zeros(2, dtype=torch.int64)
+    elif case == "strided":
+        a["visited"] = torch.zeros((3, 8), dtype=torch.int32)[:, ::2]
+    elif case == "seeds_without_mask":
+        kw = dict(seeds=torch.zeros((3, 4), dtype=torch.int32))
+    elif case == "seeds_shape":
+        kw = dict(seeds=torch.zeros((2, 4), dtype=torch.int32),
+                  seeds_mask=torch.zeros(2, dtype=torch.int32),
+                  rows=torch.arange(3, dtype=torch.int32))
+    elif case == "rows_shape":
+        kw = dict(seeds=torch.zeros((3, 4), dtype=torch.int32),
+                  seeds_mask=torch.zeros(3, dtype=torch.int32),
+                  rows=torch.zeros(2, dtype=torch.int32))
+    elif case == "rows_without_seeds":
+        kw = dict(rows=torch.arange(3, dtype=torch.int32))
+    elif case == "device":
+        a = {k: v.to("meta") for k, v in a.items()}
+    elif case == "mixed_devices":
+        a["in_nb"] = a["in_nb"].to("meta")
+    return a, kw
+
+
+@pytest.mark.parametrize("case", [
+    "f_dtype", "mask_shape", "out_shape", "out_mask_shape", "total_dtype",
+    "total_size", "strided", "seeds_without_mask", "seeds_shape",
+    "rows_shape", "rows_without_seeds", "device", "mixed_devices"])
+def test_level_wrapper_rejects(case):
+    a, kw = _bad_level_inputs(case)
+    with pytest.raises((TypeError, ValueError)):
+        kernels.bucket_or_level(*a.values(), **kw)
+
+
+def test_level_source_builds_beside_bucket_or():
+    """Both entry points are in one source, and the kernel's chunk and
+    row limit are the wrapper's (the launcher refuses another chunk)."""
+    src = (_build.CSRC_DIR / "bucket_or.cu").read_text()
+    for entry in ("bucket_or_launch", "bucket_or_level_launch"):
+        assert f'extern "C" int {entry}(' in src
+    batches = int(re.search(r"constexpr int kBatches = (\d+);", src)[1])
+    assert "constexpr int64_t kChunk = 32 * kBatches;" in src
+    assert 32 * batches == kernels.LEVEL_CHUNK
+    assert "kMaxRows = int64_t(1) << 27;" in src
+    assert kernels.LEVEL_MAX_ROWS == 1 << 27
+
+
+def test_level_wrapper_rejects_too_many_rows():
+    def meta(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    rows = kernels.LEVEL_MAX_ROWS + 1
+    with pytest.raises(ValueError, match="at most"):
+        kernels.bucket_or_level(meta(rows, 1), meta(rows), meta(3, 2),
+                                meta(3, 1), meta(3, 1), meta(3),
+                                meta(1, dtype=torch.int64))
 
 
 # -- score_dot and score_int8 (csrc/score.cu) ---------------------------------
