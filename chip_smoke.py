@@ -99,8 +99,33 @@ The sorted-UID set-algebra plane (`ops/uidvec`, `ops/codec`,
 17. `mergepath_intersect` at the UID-intersect configs, equal to
    `uidvec.intersect` with no overflow at hit_frac=1, in GB/s.
 
-The planes run in the order BFS, set algebra, vectors. Each figure is
-printed beside the card's name and power limit. Then one
+The uid-vector graph-ops plane (`ops/graph`, `ops/traverse`), on the BFS
+plane's graph (its CSR and seed sets reused, not drawn again); plain
+PyTorch, no kernel of its own:
+
+18. build: `graph.build_adjacency` of the CSR's dict on the card, its
+   edge and source counts and degrees against the CSR; host time, the
+   adjacency's bytes on the card and max_memory_allocated;
+19. `expand` of sorted seeded frontiers of 8, 1,024 and 65,536 sources
+   (the largest past a bucket's rows, so the member-mask dual runs),
+   each equal to the numpy union of the CSR rows cut to max_expansion;
+20. `bfs_reach` at depth 3 from phase 5's first seed sets, level by level
+   against numpy_bfs_levels; `make_sssp` from one seed for one round past
+   the numpy BFS eccentricity, every source slot's distance equal to its
+   hop count (INT32_INF where unreached);
+21. `build_values` over all sources with a wide and a 16-value key (LUT
+   form) and over every 16th source (search form, asserted); then
+   `multisort_page` (one and two keys, asc and desc, cursor and offset),
+   `count_filter_sort_page` (a degree band, a kept and an excluded
+   cursor), `order_topk` and `range_select` against numpy lexsort and
+   masks; `fused_rank_page` with fop "and" over a rank leaf and an
+   aligned set leaf, equal to the oracle and to `multisort_page` of the
+   filtered candidates on the wide key (asc and desc), and reporting
+   sel_count past FUSED_SEL_CAP on the 16-value key.
+Each op of phases 19-21 is timed by CUDA events beside its bytes bound.
+
+The planes run in the order BFS, graph ops, set algebra, vectors. Each
+figure is printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
 the rest of the repo.
@@ -569,8 +594,8 @@ def bfs_plane(dev, card: str) -> list[dict]:
     uniq_src, indptr, dst = bfs.make_graph(bfs.N_NODES, bfs.N_EDGES, seed=0)
     graph_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    badj = bg.build_bitadjacency(bfs.csr_to_dict(uniq_src, indptr, dst),
-                                 device=dev)
+    edges = bfs.csr_to_dict(uniq_src, indptr, dst)
+    badj = bg.build_bitadjacency(edges, device=dev)
     core = bg.build_core_adjacency(badj)
     adj_s = time.perf_counter() - t0
     padded = sum(b.in_nb.numel() for b in badj.buckets)
@@ -599,6 +624,10 @@ def bfs_plane(dev, card: str) -> list[dict]:
     reach_seeds = [np.unique(seed_mat[i]) for i in range(REACH_QUERIES)]
     oracle_levels = [bfs.numpy_bfs_levels(uniq_src, indptr, dst, s,
                                           bfs.DEPTH) for s in reach_seeds]
+    GRAPH.update(csr=(uniq_src, indptr, dst), edges=edges,
+                 reach=(reach_seeds[:GRAPH_REACH_SETS],
+                        oracle_levels[:GRAPH_REACH_SETS]))
+    del edges
 
     # the main path: the digest over every seed matrix
     torch.cuda.synchronize()
@@ -794,6 +823,378 @@ def bfs_plane(dev, card: str) -> list[dict]:
              "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": "bytes",
              "library_ms": None}]
+
+
+# -- the uid-vector graph-ops plane (phases 18-21) --------------------------
+
+# the BFS plane's graph, kept for the graph-ops plane: the CSR, its dict
+# form, and the first seed sets of phase 5 with their numpy_bfs_levels
+GRAPH: dict = {}
+GRAPH_REACH_SETS = 3
+EXPAND_FRONTIERS = (8, 1024, 65_536)
+GRAPH_REPS = 5
+PAGE_WINDOW = 64
+SPARSE_EVERY = 16
+RANK_MISSING = 2**31 - 1
+UID_PAD = 0xFFFFFFFF
+
+
+def bfs_graph(bfs) -> dict:
+    """The BFS plane's graph and reach answers, or fresh ones when that
+    plane did not run in this process."""
+    if not GRAPH:
+        csr = bfs.make_graph(bfs.N_NODES, bfs.N_EDGES, seed=0)
+        seed_mat = bfs.seed_matrices(csr[0], 1, GRAPH_REACH_SETS)
+        seeds = [np.unique(s) for s in seed_mat]
+        GRAPH.update(csr=csr, edges=bfs.csr_to_dict(*csr), reach=(
+            seeds, [bfs.numpy_bfs_levels(*csr, s, bfs.DEPTH)
+                    for s in seeds]))
+    return GRAPH
+
+
+def csr_union(csr, uids: np.ndarray, sorted_unique) -> np.ndarray:
+    """The numpy oracle of one expansion: the sorted union of the CSR rows
+    of `uids` (uint64)."""
+    uniq_src, indptr, dst = csr
+    idx = np.clip(np.searchsorted(uniq_src, uids), 0, len(uniq_src) - 1)
+    rows = idx[uniq_src[idx] == uids]
+    starts, lens = indptr[rows], indptr[rows + 1] - indptr[rows]
+    total = int(lens.sum())
+    if not total:
+        return np.empty(0, np.uint64)
+    offs = np.repeat(starts - (np.cumsum(lens) - lens), lens) + \
+        np.arange(total)
+    return sorted_unique(dst[offs])
+
+
+def hop_distances(csr, seed: int, n_nodes: int, sorted_unique):
+    """Hop distance of every uid 1..n_nodes from `seed` (RANK_MISSING's
+    value, INT32_INF, where unreached) and the eccentricity, by numpy
+    BFS levels over the CSR."""
+    dist = np.full(n_nodes + 1, RANK_MISSING, np.int64)
+    dist[seed] = 0
+    frontier, d = np.asarray([seed], np.uint64), 0
+    while len(frontier):
+        nxt = csr_union(csr, frontier, sorted_unique)
+        nxt = nxt[dist[nxt] == RANK_MISSING]
+        if len(nxt):
+            d += 1
+            dist[nxt] = d
+        frontier = nxt
+    return dist, d
+
+
+def oracle_stream(uids: np.ndarray, cols: list[np.ndarray]) -> np.ndarray:
+    """numpy lexsort of candidates by (cols..., uid)."""
+    return uids[np.lexsort((uids,) + tuple(reversed(cols)))]
+
+
+def oracle_page(stream, after: int, offset: int, window: int, limit=None):
+    """The page `window` long after the cursor and the offset, and its
+    unclamped start, as the page ops define them."""
+    hits = np.flatnonzero(stream == after)
+    found = len(hits) > 0 and (limit is None or hits[0] < limit)
+    start = (int(hits[0]) + 1 if found else 0) + offset
+    s = min(max(start, 0), len(stream))
+    ext = np.concatenate([stream, np.full(window, UID_PAD, np.int64)])
+    return ext[s: s + window], start
+
+
+def rank_col(ranks: np.ndarray, desc: bool) -> np.ndarray:
+    """A rank column as the order ops key it: negated for desc, missing
+    values last either way."""
+    if not desc:
+        return ranks
+    return np.where(ranks == RANK_MISSING, ranks, -ranks)
+
+
+def same_packed(label: str, got: torch.Tensor, want) -> None:
+    got = got.cpu().numpy()
+    want = np.asarray(want, np.int64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = np.flatnonzero(got != want)[:4] if got.shape == want.shape \
+            else "shape"
+        raise AssertionError(f"{label}: != numpy oracle (first differing "
+                             f"slots {bad})")
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def graph_plane(dev, card: str) -> None:
+    """Phases 18-21: the uid-vector graph ops (`ops/graph`,
+    `ops/traverse`) on the BFS plane's graph."""
+    from dgraph_tpu_torch.bench import bfs
+    from dgraph_tpu_torch.bench.setops import sorted_unique
+    from dgraph_tpu_torch.ops import graph, traverse
+    from dgraph_tpu_torch.ops.uidvec import from_numpy, pad_to, to_numpy
+
+    g = bfs_graph(bfs)
+    csr = g["csr"]
+    uniq_src, indptr, dst = csr
+
+    # -- 18. build ---------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    adj = graph.build_adjacency(g["edges"], device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if adj.n_edges != len(dst) or adj.n_src != len(uniq_src):
+        raise AssertionError(f"adjacency holds {adj.n_edges} edges of "
+                             f"{adj.n_src} sources, the CSR {len(dst)} of "
+                             f"{len(uniq_src)}")
+    n = adj.n_src
+    if not np.array_equal(adj.degrees[:n].cpu().numpy(), np.diff(indptr)):
+        raise AssertionError("adjacency degrees != the CSR's row lengths")
+    tiles = [adj.src_uids, adj.degrees] + \
+        [t for b in adj.buckets for t in (b.src, b.neighbors)]
+    adj_gib = sum(t.numel() * t.element_size() for t in tiles) / 2**30
+    slots = sum(b.neighbors.numel() for b in adj.buckets)
+    log(f"graph ops, build: build_adjacency {build_s:.3f} s on the host "
+        f"for {n} sources, {adj.n_edges} edges (= the CSR), {adj.n_dst} "
+        f"distinct destinations; {len(adj.buckets)} buckets of degrees "
+        f"{[b.degree for b in adj.buckets]}, {slots} padded slots; "
+        f"adjacency {adj_gib:.3f} GiB on the card, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB | {card}")
+
+    # -- 19. expand --------------------------------------------------------
+    rng = np.random.default_rng(19)
+    mask_duals = 0
+    for f_n in EXPAND_FRONTIERS:
+        fr = np.sort(rng.choice(uniq_src, f_n, replace=False))
+        size = pad_to(f_n)
+        frontier = from_numpy(fr.astype(np.uint32), size, device=dev)
+        out = graph.max_expansion(adj, size)
+        got = to_numpy(graph.expand(adj, frontier, out))
+        want = csr_union(csr, fr, sorted_unique)
+        if not np.array_equal(got, want[:out].astype(np.uint32)):
+            raise AssertionError(f"expand of {f_n} sources != the numpy "
+                                 f"union of their CSR rows")
+        duals = sum(size > b.src.shape[0] for b in adj.buckets)
+        mask_duals += duals
+        gathered = sum(min(b.src.shape[0], size) * b.degree
+                       for b in adj.buckets)
+        ms = cuda_ms(lambda: graph.expand(adj, frontier, out), GRAPH_REPS)
+        b_ms = bound_ms((3 * gathered + size + out) * 8)
+        log(f"expand {f_n} sources: {len(got)} uids (union {len(want)}, "
+            f"out size {out}) = numpy union; {duals} of "
+            f"{len(adj.buckets)} buckets take the member-mask dual; "
+            f"{ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms (bytes: "
+            f"{gathered} gathered slots read, written and read as flat "
+            f"candidates, 8 B each, frontier and output once) | {card}")
+    if not mask_duals:
+        raise AssertionError("no frontier ran expand's member-mask dual")
+
+    # -- 20. traverse ------------------------------------------------------
+    seeds, want_levels = g["reach"]
+    for q, (s, want) in enumerate(zip(seeds, want_levels)):
+        got = traverse.bfs_reach(adj, s.astype(np.uint32), bfs.DEPTH)
+        for lvl in range(bfs.DEPTH):
+            if not np.array_equal(got[lvl], want[lvl].astype(np.uint32)):
+                raise AssertionError(f"bfs_reach seed set {q} level "
+                                     f"{lvl + 1} != numpy_bfs_levels")
+    size = pad_to(len(seeds[0]))
+    fn = traverse.make_bfs(adj, size, bfs.DEPTH)
+    sv = from_numpy(seeds[0].astype(np.uint32), size, device=dev)
+    bfs_ms = cuda_ms(lambda: fn(sv), GRAPH_REPS)
+    sizes = [size]
+    for _ in range(bfs.DEPTH):
+        sizes.append(graph.max_expansion(adj, sizes[-1]))
+    bfs_bytes = sum((3 * sum(min(b.src.shape[0], f) * b.degree
+                             for b in adj.buckets) + f + o) * 8
+                    for f, o in zip(sizes[:-1], sizes[1:]))
+    log(f"bfs_reach depth {bfs.DEPTH}: {len(seeds)} seed sets of 8, every "
+        f"level = numpy_bfs_levels (sizes {[len(x) for x in want_levels[0]]} "
+        f"for set 0, padded {sizes[1:]}); make_bfs {bfs_ms:.4f} ms a call "
+        f"(CUDA events), bound {bound_ms(bfs_bytes):.4f} ms (bytes: each "
+        f"level's expand as in phase 19, the dedup not counted) | {card}")
+
+    seed = int(uniq_src[rng.integers(len(uniq_src))])
+    hops, ecc = hop_distances(csr, seed, bfs.N_NODES, sorted_unique)
+    iters = ecc + 1
+    sssp = traverse.make_sssp(adj, iters)
+    s1 = from_numpy(np.asarray([seed], np.uint32), 8, device=dev)
+    src_t, dist_t = sssp(s1)
+    src_np, dist_np = src_t.cpu().numpy(), dist_t.cpu().numpy()
+    real = src_np != UID_PAD
+    if not np.array_equal(dist_np[real], hops[src_np[real]]) or \
+            not (dist_np[~real] == RANK_MISSING).all():
+        raise AssertionError("make_sssp distances != numpy BFS hop counts")
+    sssp_ms = cuda_ms(lambda: sssp(s1), 2)
+    reached = int((dist_np[real] < RANK_MISSING).sum())
+    log(f"make_sssp from uid {seed}: {iters} rounds (eccentricity {ecc}); "
+        f"{reached} of {n} source slots reached, every distance = numpy "
+        f"BFS hops, the rest INT32_INF; {sssp_ms:.4f} ms a call (CUDA "
+        f"events), bound {bound_ms(iters * slots * 12):.4f} ms (bytes: per "
+        f"round each padded slot's target index and candidate distance, 12 "
+        f"B) | {card}")
+    del sssp, src_t, dist_t
+
+    # -- 21. values and pages ----------------------------------------------
+    uids = uniq_src.astype(np.int64)
+    k_wide = rng.integers(0, 1 << 40, n)
+    k16 = rng.integers(0, 16, n)
+    sparse = np.arange(0, n, SPARSE_EVERY)
+    t0 = time.perf_counter()
+    dv_wide = graph.build_values(dict(zip(uids.tolist(), k_wide.tolist())),
+                                 device=dev)
+    dv16 = graph.build_values(dict(zip(uids.tolist(), k16.tolist())),
+                              device=dev)
+    dv_sp = graph.build_values(dict(zip(uids[sparse].tolist(),
+                                        k_wide[sparse].tolist())), device=dev)
+    values_s = time.perf_counter() - t0
+    forms = [graph.dv_view(dv)[1] for dv in (dv_wide, dv16, dv_sp)]
+    if forms != [True, True, False]:
+        raise AssertionError(f"value tables took forms {forms} (LUT?), "
+                             f"expected LUT, LUT, search")
+
+    def ranks_of(keys):
+        return np.searchsorted(sorted_unique(keys), keys).astype(np.int64)
+
+    n_pad = adj.src_uids.shape[0]
+    pad = np.full(n_pad - n, RANK_MISSING, np.int64)
+    r_wide = np.concatenate([ranks_of(k_wide), pad])
+    r16 = np.concatenate([ranks_of(k16), pad])
+    r_sp = np.full(n_pad, RANK_MISSING, np.int64)
+    r_sp[sparse] = ranks_of(k_wide[sparse])
+    cand_np = np.concatenate([uids, np.full(n_pad - n, UID_PAD, np.int64)])
+    cand = adj.src_uids
+    tables = {"wide": (dv_wide, r_wide), "k16": (dv16, r16),
+              "sparse": (dv_sp, r_sp)}
+    log(f"values: build_values {values_s:.3f} s on the host for three "
+        f"tables: k_wide ({len(dv_wide.host_keys)} keys) and k16 "
+        f"({len(dv16.host_keys)}) over {n} sources in the LUT form, every "
+        f"{SPARSE_EVERY}th source ({dv_sp.n}) in the search form | {card}")
+    window = PAGE_WINDOW
+
+    def page_case(label, names, descs, after, offset):
+        dvs = [tables[k][0] for k in names]
+        cols = [rank_col(tables[k][1], d) for k, d in zip(names, descs)]
+        stream = oracle_stream(cand_np, cols)
+        page, start = oracle_page(stream, after, offset, window)
+        args = (cand, tuple(dv.uids for dv in dvs),
+                tuple(dv.ranks for dv in dvs), descs, window, after, offset)
+        same_packed(label, graph.multisort_page(*args),
+                    np.concatenate([page, [start & 0xFFFFFFFF]]))
+        ms = cuda_ms(lambda: graph.multisort_page(*args), GRAPH_REPS)
+        b_ms = bound_ms(n_pad * (8 + 4 * len(names)) + window * 8)
+        log(f"multisort_page {label} by {list(zip(names, descs))}, after "
+            f"{after}, offset {offset}: page = numpy lexsort (start "
+            f"{start}); {ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms "
+            f"(bytes: each candidate and its ranks read once) | {card}")
+
+    mid = int(oracle_stream(cand_np, [r_wide])[n // 2])
+    page_case("one key asc", ("wide",), (False,), mid, 5)
+    page_case("one key desc", ("k16",), (True,), 0, 12_345)
+    page_case("two keys", ("k16", "wide"), (False, True), mid, 0)
+    page_case("two keys, one sparse", ("k16", "sparse"), (True, False), 0,
+              n - 10)
+
+    # has() + count band + order + page over the resident adjacency
+    deg = np.concatenate([np.diff(indptr), np.zeros(n_pad - n, np.int64)])
+    lo, hi = 4, 64
+    keep = (deg >= lo) & (deg <= hi) & (cand_np != UID_PAD)
+    n_kept = int(keep.sum())
+    cols = [rank_col(r16, False), rank_col(r_wide, True)]
+    stream = oracle_stream(cand_np, [(~keep).astype(np.int64)] + cols)
+    excluded = int(cand_np[np.flatnonzero(~keep & (cand_np != UID_PAD))[0]])
+    for after, offset in ((int(stream[500]), 3), (excluded, 7)):
+        page, start = oracle_page(stream, after, offset, window,
+                                  limit=n_kept)
+        args = (cand, adj.degrees, lo, hi, (dv16.uids, dv_wide.uids),
+                (dv16.ranks, dv_wide.ranks), (False, True), window, after,
+                offset)
+        same_packed("count_filter_sort_page",
+                    graph.count_filter_sort_page(*args),
+                    np.concatenate([page, [start, n_kept]]))
+    cf_ms = cuda_ms(lambda: graph.count_filter_sort_page(*args), GRAPH_REPS)
+    log(f"count_filter_sort_page degree [{lo}, {hi}] over {n} sources: "
+        f"{n_kept} kept, pages after a kept and an excluded cursor = numpy "
+        f"lexsort; {cf_ms:.4f} ms (CUDA events), bound "
+        f"{bound_ms(n_pad * (8 + 4 + 8) + window * 8):.4f} ms (bytes: each "
+        f"candidate, degree and two ranks read once) | {card}")
+
+    k = 100
+    top, cnt = graph.order_topk(dv16.uids, dv16.ranks, cand, k, desc=True)
+    want = oracle_stream(cand_np, [rank_col(r16, True)])[:k]
+    same_packed("order_topk", top, want)
+    if int(cnt) != min(n, k):
+        raise AssertionError(f"order_topk count {int(cnt)}")
+    tk_ms = cuda_ms(lambda: graph.order_topk(dv16.uids, dv16.ranks, cand, k,
+                                             desc=True), GRAPH_REPS)
+    log(f"order_topk k {k} desc over {n} sources = numpy lexsort; "
+        f"{tk_ms:.4f} ms (CUDA events), bound "
+        f"{bound_ms(n_pad * 12 + k * 8):.4f} ms (bytes: each candidate and "
+        f"its rank read once) | {card}")
+
+    lo_k, hi_k = int(np.quantile(k_wide, 0.3)), int(np.quantile(k_wide, 0.6))
+    got = to_numpy(graph.range_select(dv_wide, lo_k, hi_k))
+    want = uids[(k_wide >= lo_k) & (k_wide <= hi_k)].astype(np.uint32)
+    if not np.array_equal(got, want):
+        raise AssertionError("range_select != the numpy mask")
+    rs_ms = cuda_ms(lambda: graph.range_select(dv_wide, lo_k, hi_k),
+                    GRAPH_REPS)
+    log(f"range_select [{lo_k}, {hi_k}] over {n} values: {len(got)} uids = "
+        f"numpy mask; {rs_ms:.4f} ms (CUDA events), bound "
+        f"{bound_ms(n_pad * 20):.4f} ms (bytes: ranks and uids read, uids "
+        f"written once) | {card}")
+
+    # the fused tier: a rank leaf on k_wide and an aligned set leaf
+    nk = len(dv_wide.host_keys)
+    r_lo, r_hi = nk // 4, 3 * nk // 4
+    setmask = np.zeros(n_pad, bool)
+    setmask[:n] = uids % 3 != 0
+    kept = (r_wide >= r_lo) & (r_wide < r_hi) & setmask
+    view, is_lut = graph.dv_view(dv_wide)
+    mask_t = torch.from_numpy(setmask).to(dev)
+    kept_cand = from_numpy(cand_np[kept].astype(np.uint32), device=dev)
+    offset = 100
+    for ord_name, desc, over in (("wide", False, False), ("wide", True, False),
+                                 ("k16", False, True)):
+        odv, oranks = tables[ord_name]
+        domain = max(1, len(odv.host_keys))
+        shift = max(0, (domain - 1).bit_length() - 12)
+        base0 = -(domain - 1) if desc else 0
+        oview, olut = graph.dv_view(odv)
+
+        def fused():
+            return graph.fused_rank_page(
+                cand, (view,), (is_lut,), (r_lo,), (r_hi,), (False,),
+                (mask_t,), (False,), True, "and", (oview,), (olut,), (desc,),
+                base0, shift, window, offset)
+        out = fused().cpu().numpy()
+        sel_count, got_kept = int(out[-2]), int(out[-1])
+        if got_kept != int(kept.sum()):
+            raise AssertionError(f"fused n_kept {got_kept} != "
+                                 f"{int(kept.sum())}")
+        if (sel_count > graph.FUSED_SEL_CAP) != over:
+            raise AssertionError(f"fused on {ord_name}: sel_count "
+                                 f"{sel_count}, expected "
+                                 f"{'past' if over else 'within'} the cap")
+        ms = cuda_ms(fused, GRAPH_REPS)
+        b_ms = bound_ms(n_pad * (8 + 4 + 1 + 4) + window * 8)
+        if not over:
+            stream = oracle_stream(cand_np[kept], [rank_col(oranks[kept],
+                                                            desc)])
+            page, _ = oracle_page(stream, 0, offset, window)
+            same_packed("fused_rank_page", torch.from_numpy(out[:-2]), page)
+            staged = graph.multisort_page(kept_cand, (odv.uids,),
+                                          (odv.ranks,), (desc,), window, 0,
+                                          offset)
+            same_packed("fused page against multisort_page",
+                        torch.from_numpy(out[:-2]), staged.cpu().numpy()[:-1])
+        log(f"fused_rank_page and(rank leaf, set leaf) ordered by "
+            f"{ord_name} {'desc' if desc else 'asc'} (shift {shift}, base0 "
+            f"{base0}): n_kept {got_kept}, sel_count {sel_count} "
+            f"{'> cap ' + str(graph.FUSED_SEL_CAP) + ' (the staged chain answers)' if over else '<= cap, page = numpy lexsort = multisort_page'}; "
+            f"{ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms (bytes: each "
+            f"candidate, leaf rank, mask byte and order rank read once) | "
+            f"{card}")
+    GRAPH.clear()
+    log(f"graph ops: peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB | {card}")
 
 
 # -- the vector search plane (phases 8-12) ----------------------------------
@@ -1628,10 +2029,10 @@ def main() -> int:
     # vector plane's profiles, torch.profiler (torch 2.11, CUDA 12.8)
     # records no device activity for the rest of the process
     entries = []
-    for plane in (bfs_plane, setops_plane, vector_plane):
+    for plane in (bfs_plane, graph_plane, setops_plane, vector_plane):
         t0 = time.perf_counter()
         got = plane(dev, card)
-        entries += got if isinstance(got, list) else [got]
+        entries += got if isinstance(got, list) else [got] if got else []
         torch.cuda.empty_cache()
         log(f"{plane.__name__}: {time.perf_counter() - t0:.1f} s")
 

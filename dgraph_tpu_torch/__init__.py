@@ -13,7 +13,23 @@ Ported so far:
   tiers (`ops.knn`) and the quantized IVF tier (`ops.ivf`), with the
   scoring products as hand-written CUDA kernels (`ops.kernels.score_dot`
   and `score_int8_lists`, the quantized tier's approximate stage in one
-  launch, `csrc/score.cu`), and its benchmark (`bench.vectors`).
+  launch, `csrc/score.cu`), and its benchmark (`bench.vectors`);
+- the sorted-UID set algebra: padded uid vectors (`ops.uidvec`), the
+  compressed block codec (`ops.codec`), pack-level set operations
+  (`ops.setops`, the k-way AND of bitmap blocks as a hand-written CUDA
+  kernel, `ops.kernels.bitmap_and`, `csrc/bitmap_and.cu`) and the
+  merge-path intersect (`ops.mergepath`), with its benchmark
+  (`bench.setops`);
+- the uid-vector graph ops: degree-bucketed adjacency, expansion, value
+  ranks, order-by pages and the fused rank page (`ops.graph`), BFS and
+  SSSP over them (`ops.traverse`) and the batched Levenshtein verify
+  (`ops.editdist`), all plain PyTorch or numpy;
+- the host leaf layer, copies of the reference's numpy and standard
+  library modules with their imports rewritten: `models` (types,
+  stemmer, geo, tokenizer, schema), `gql` (lexer, AST, parser, RDF and
+  JSON mutations), `utils.keys`, `failpoint`, `metrics` and `tracing`
+  (`profile_device` wraps `torch.profiler`), and
+  `cluster.coordinator`.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

@@ -1,0 +1,343 @@
+"""Schema: predicate definitions, type definitions, parser, runtime state.
+
+Re-provides the reference's schema package: the schema-file parser
+(schema/parse.go:34 ParseBytes, schema/parse.go:174 parseIndexDirective),
+the in-memory predicate state with its accessor surface
+(schema/schema.go:184-316 IsIndexed/Tokenizer/IsReversed/HasCount/IsList/
+HasLang/...), and the reserved initial schema (schema/schema.go:436-489).
+
+Grammar (same surface as the reference):
+
+    name: string @index(term, exact) @lang .
+    age: int @index(int) .
+    friend: [uid] @reverse @count .
+    loc: geo @index(geo) .
+    pass: password .
+
+    type Person {
+      name
+      age
+      friend
+    }
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+
+from dgraph_tpu_torch.models.tokenizer import (
+    default_tokenizer_for, get_tokenizer,
+)
+from dgraph_tpu_torch.models.types import TypeID, type_from_name, type_name
+
+PREDICATE_TYPE = "dgraph.type"  # reserved type-membership predicate
+
+
+@dataclass
+class PredicateSchema:
+    """One predicate's schema. Ref: pb.SchemaUpdate."""
+
+    predicate: str
+    value_type: TypeID = TypeID.DEFAULT
+    list_: bool = False
+    indexed: bool = False
+    tokenizers: list[str] = field(default_factory=list)
+    reverse: bool = False
+    count: bool = False
+    upsert: bool = False
+    lang: bool = False
+    noconflict: bool = False
+
+    def describe(self) -> str:
+        t = type_name(self.value_type)
+        if self.list_:
+            t = f"[{t}]"
+        parts = [f"{self.predicate}: {t}"]
+        if self.indexed:
+            parts.append(f"@index({', '.join(self.tokenizers)})")
+        if self.reverse:
+            parts.append("@reverse")
+        if self.count:
+            parts.append("@count")
+        if self.upsert:
+            parts.append("@upsert")
+        if self.lang:
+            parts.append("@lang")
+        if self.noconflict:
+            parts.append("@noconflict")
+        return " ".join(parts) + " ."
+
+
+@dataclass
+class TypeDef:
+    """A `type X { ... }` definition. Ref: pb.TypeUpdate."""
+
+    name: str
+    fields: list[str] = field(default_factory=list)
+
+
+_TOKEN_RE = re.compile(
+    r"""
+      (?P<comment>\#[^\n]*)
+    | (?P<lbracket>\[) | (?P<rbracket>\])
+    | (?P<lparen>\() | (?P<rparen>\))
+    | (?P<lbrace>\{) | (?P<rbrace>\})
+    | (?P<colon>:) | (?P<comma>,) | (?P<dot>\.)
+    | (?P<at>@)
+    | (?P<angled><[^>\s]+>)
+    | (?P<word>[\w.\-~]+)
+    """,
+    re.VERBOSE | re.UNICODE,
+)
+
+
+def _lex(text: str) -> list[tuple[str, str]]:
+    out = []
+    pos = 0
+    for m in _TOKEN_RE.finditer(text):
+        between = text[pos : m.start()]
+        if between.strip():
+            raise ValueError(f"schema: unexpected {between.strip()[:20]!r}")
+        pos = m.end()
+        kind = m.lastgroup
+        if kind == "comment":
+            continue
+        val = m.group()
+        if kind == "angled":
+            kind, val = "word", val[1:-1]
+        out.append((kind, val))
+    if text[pos:].strip():
+        raise ValueError(f"schema: unexpected {text[pos:].strip()[:20]!r}")
+    return out
+
+
+class _Cursor:
+    def __init__(self, toks):
+        self.toks = toks
+        self.i = 0
+
+    def peek(self):
+        return self.toks[self.i] if self.i < len(self.toks) else ("eof", "")
+
+    def next(self):
+        t = self.peek()
+        self.i += 1
+        return t
+
+    def expect(self, kind):
+        k, v = self.next()
+        if k != kind:
+            raise ValueError(f"schema: expected {kind}, got {k} {v!r}")
+        return v
+
+
+def parse_schema(text: str) -> tuple[list[PredicateSchema], list[TypeDef]]:
+    """Parse a schema document. Ref: schema.Parse (schema/parse.go:295)."""
+    cur = _Cursor(_lex(text))
+    preds: list[PredicateSchema] = []
+    types: list[TypeDef] = []
+    while cur.peek()[0] != "eof":
+        kind, val = cur.peek()
+        if kind == "word" and val == "type":
+            nxt = cur.toks[cur.i + 1] if cur.i + 1 < len(cur.toks) else ("eof", "")
+            if nxt[0] == "word":
+                types.append(_parse_typedef(cur))
+                continue
+        preds.append(_parse_predicate(cur))
+    return preds, types
+
+
+def _parse_typedef(cur: _Cursor) -> TypeDef:
+    cur.next()  # 'type'
+    name = cur.expect("word")
+    cur.expect("lbrace")
+    fields = []
+    while cur.peek()[0] != "rbrace":
+        k, v = cur.next()
+        if k == "word":
+            fields.append(v)
+        elif k in ("colon", "comma", "dot", "lbracket", "rbracket"):
+            continue  # tolerate legacy `field: type` syntax inside types
+        else:
+            raise ValueError(f"schema: bad token in type body: {v!r}")
+    cur.expect("rbrace")
+    return TypeDef(name, fields)
+
+
+def _parse_predicate(cur: _Cursor) -> PredicateSchema:
+    pred = cur.expect("word")
+    cur.expect("colon")
+    ps = PredicateSchema(pred)
+    k, v = cur.next()
+    if k == "lbracket":
+        ps.list_ = True
+        ps.value_type = type_from_name(cur.expect("word"))
+        cur.expect("rbracket")
+    elif k == "word":
+        ps.value_type = type_from_name(v)
+    else:
+        raise ValueError(f"schema: expected type for {pred}, got {v!r}")
+    if ps.value_type == TypeID.FLOAT32VECTOR and ps.list_:
+        # one embedding per (uid, predicate): the columnar vector store
+        # is a dense (n, d) block, a list would make rows ragged (the
+        # reference's vfloat is likewise non-list)
+        raise ValueError(
+            f"[float32vector] is not supported for {pred!r}; vector "
+            "predicates hold one embedding per uid")
+    while cur.peek()[0] == "at":
+        cur.next()
+        directive = cur.expect("word")
+        _apply_directive(cur, ps, directive)
+    cur.expect("dot")
+    return ps
+
+
+def _apply_directive(cur: _Cursor, ps: PredicateSchema, directive: str):
+    if directive == "index":
+        ps.indexed = True
+        if cur.peek()[0] == "lparen":
+            cur.next()
+            while cur.peek()[0] != "rparen":
+                k, v = cur.next()
+                if k == "word":
+                    spec = get_tokenizer(v)
+                    if spec.for_type != ps.value_type and not (
+                        spec.for_type == TypeID.STRING
+                        and ps.value_type == TypeID.DEFAULT
+                    ):
+                        raise ValueError(
+                            f"Tokenizer {v!r} is not valid for predicate "
+                            f"{ps.predicate!r} of type "
+                            f"{type_name(ps.value_type)}")
+                    ps.tokenizers.append(v)
+                elif k != "comma":
+                    raise ValueError(f"schema: bad index arg {v!r}")
+            cur.next()  # rparen
+        if not ps.tokenizers:
+            d = default_tokenizer_for(ps.value_type)
+            if d is None:
+                raise ValueError(
+                    f"Type {type_name(ps.value_type)} requires explicit "
+                    f"tokenizers on @index for {ps.predicate!r}")
+            ps.tokenizers.append(d.name)
+    elif directive == "reverse":
+        if ps.value_type != TypeID.UID:
+            raise ValueError("@reverse is only allowed on uid predicates")
+        ps.reverse = True
+    elif directive == "count":
+        ps.count = True
+    elif directive == "upsert":
+        ps.upsert = True
+    elif directive == "noconflict":
+        ps.noconflict = True
+    elif directive == "lang":
+        if ps.value_type != TypeID.STRING or ps.list_:
+            raise ValueError("@lang only applies to non-list string predicates")
+        ps.lang = True
+    else:
+        raise ValueError(f"schema: unknown directive @{directive}")
+
+
+def initial_schema() -> list[PredicateSchema]:
+    """Reserved predicates present in every database.
+    Ref: schema.InitialSchema (schema/schema.go:436-489)."""
+    return [
+        PredicateSchema(PREDICATE_TYPE, TypeID.STRING, list_=True,
+                        indexed=True, tokenizers=["exact"]),
+        PredicateSchema("dgraph.xid", TypeID.STRING,
+                        indexed=True, tokenizers=["exact"], upsert=True),
+        PredicateSchema("dgraph.password", TypeID.PASSWORD),
+        PredicateSchema("dgraph.user.group", TypeID.UID,
+                        list_=True, reverse=True),
+        PredicateSchema("dgraph.group.acl", TypeID.STRING),
+    ]
+
+
+class SchemaState:
+    """Mutable predicate->schema map guarding the engine.
+    Ref: schema.state (schema/schema.go:48-57) minus the mutex — the engine
+    serializes schema changes through its apply loop."""
+    # dglint: guarded-by=*:external (see the docstring: schema changes
+    # serialize through the engine's apply loop, reads run under the
+    # server's rw read lock)
+
+    def __init__(self, with_initial: bool = True):
+        self._preds: dict[str, PredicateSchema] = {}
+        self._types: dict[str, TypeDef] = {}
+        if with_initial:
+            for ps in initial_schema():
+                self._preds[ps.predicate] = ps
+
+    # -- mutation --
+    def set_predicate(self, ps: PredicateSchema):
+        self._preds[ps.predicate] = ps
+
+    def set_type(self, td: TypeDef):
+        self._types[td.name] = td
+
+    def delete_predicate(self, pred: str):
+        self._preds.pop(pred, None)
+
+    def apply_text(self, text: str):
+        preds, types = parse_schema(text)
+        for ps in preds:
+            self.set_predicate(ps)
+        for td in types:
+            self.set_type(td)
+        return preds, types
+
+    # -- accessors (ref schema/schema.go:184-316) --
+    def get(self, pred: str) -> PredicateSchema | None:
+        return self._preds.get(pred)
+
+    def get_or_default(self, pred: str) -> PredicateSchema:
+        ps = self._preds.get(pred)
+        return ps if ps is not None else PredicateSchema(pred)
+
+    def has(self, pred: str) -> bool:
+        return pred in self._preds
+
+    def predicates(self) -> list[str]:
+        return list(self._preds)
+
+    def types(self) -> list[TypeDef]:
+        return list(self._types.values())
+
+    def get_type(self, name: str) -> TypeDef | None:
+        return self._types.get(name)
+
+    def is_indexed(self, pred: str) -> bool:
+        ps = self._preds.get(pred)
+        return bool(ps and ps.indexed)
+
+    def tokenizer_names(self, pred: str) -> list[str]:
+        ps = self._preds.get(pred)
+        return list(ps.tokenizers) if ps else []
+
+    def is_reversed(self, pred: str) -> bool:
+        ps = self._preds.get(pred)
+        return bool(ps and ps.reverse)
+
+    def has_count(self, pred: str) -> bool:
+        ps = self._preds.get(pred)
+        return bool(ps and ps.count)
+
+    def is_list(self, pred: str) -> bool:
+        ps = self._preds.get(pred)
+        return bool(ps and ps.list_)
+
+    def has_lang(self, pred: str) -> bool:
+        ps = self._preds.get(pred)
+        return bool(ps and ps.lang)
+
+    def type_of(self, pred: str) -> TypeID:
+        ps = self._preds.get(pred)
+        return ps.value_type if ps else TypeID.DEFAULT
+
+    def describe_all(self) -> str:
+        lines = [ps.describe() for ps in self._preds.values()]
+        for td in self._types.values():
+            lines.append("type %s {\n%s\n}" % (
+                td.name, "\n".join(f"  {f}" for f in td.fields)))
+        return "\n".join(lines)

@@ -1,0 +1,330 @@
+"""Scalar value types and conversions.
+
+Re-provides the reference's type system (types/scalar_types.go:71 TypeID
+enumeration, types/conversion.go:36 Convert matrix) in idiomatic Python.
+Values cross the host/device boundary only as *sortable keys* (int64/float64
+tensors for order-by and inequality indexes); rich values (strings, geo,
+datetime) stay host-side, exactly the data/control split in SURVEY §1.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import enum
+import hashlib
+import json
+import struct
+from dataclasses import dataclass
+from typing import Any
+
+
+class TypeID(enum.IntEnum):
+    """Mirrors pb.Posting_ValType ordering (protos/pb.proto Posting)."""
+
+    DEFAULT = 0
+    BINARY = 1
+    INT = 2
+    FLOAT = 3
+    BOOL = 4
+    DATETIME = 5
+    GEO = 6
+    UID = 7
+    PASSWORD = 8
+    STRING = 9
+    # Forward-port of modern Dgraph's vfloat (pb.Posting_VFLOAT = 10):
+    # a dense float32 embedding; the payload is a numpy float32 array.
+    # Vectors are the one value type whose *data* plane lives on device
+    # (storage/vecstore.py packs per-predicate (n, d) blocks; ops/knn.py
+    # scores them) — host-side they only parse, convert, and emit.
+    FLOAT32VECTOR = 10
+
+
+_NAME_TO_TYPE = {
+    "default": TypeID.DEFAULT,
+    "binary": TypeID.BINARY,
+    "int": TypeID.INT,
+    "float": TypeID.FLOAT,
+    "bool": TypeID.BOOL,
+    "datetime": TypeID.DATETIME,
+    "geo": TypeID.GEO,
+    "uid": TypeID.UID,
+    "password": TypeID.PASSWORD,
+    "string": TypeID.STRING,
+    "float32vector": TypeID.FLOAT32VECTOR,
+}
+_TYPE_TO_NAME = {v: k for k, v in _NAME_TO_TYPE.items()}
+# parse-only alias: the reference's schemas spell it `dateTime`
+# (dgo schemas say `dob: dateTime @index(year)`); added after
+# _TYPE_TO_NAME so the emitted canonical name stays "datetime"
+_NAME_TO_TYPE["dateTime"] = TypeID.DATETIME
+
+
+_SCRYPT_N, _SCRYPT_R, _SCRYPT_P = 2 ** 12, 8, 1
+
+
+def hash_password(plain: str) -> str:
+    """Salted scrypt hash, applied at ingest like the reference's bcrypt
+    conversion (types/password.go Encrypt). Already-hashed values pass
+    through so replay/restore stays idempotent."""
+    import base64
+    import os as _os
+    if plain.startswith("scrypt$"):
+        return plain
+    salt = _os.urandom(16)
+    h = hashlib.scrypt(plain.encode(), salt=salt, n=_SCRYPT_N,
+                       r=_SCRYPT_R, p=_SCRYPT_P)
+    return "scrypt$%s$%s" % (base64.b64encode(salt).decode(),
+                             base64.b64encode(h).decode())
+
+
+def verify_password(plain: str, stored: str) -> bool:
+    """Constant-time check against a stored hash (types/password.go
+    VerifyPassword / checkpwd query function)."""
+    import base64
+    import hmac as _hmac
+    try:
+        scheme, salt_b64, h_b64 = stored.split("$")
+        if scheme != "scrypt":
+            return False
+        salt = base64.b64decode(salt_b64)
+        want = base64.b64decode(h_b64)
+    except (ValueError, TypeError):
+        return False
+    got = hashlib.scrypt(plain.encode(), salt=salt, n=_SCRYPT_N,
+                         r=_SCRYPT_R, p=_SCRYPT_P)
+    return _hmac.compare_digest(got, want)
+
+
+def type_from_name(name: str) -> TypeID:
+    t = _NAME_TO_TYPE.get(name)
+    if t is None:
+        raise ValueError(f"Undefined type name: {name!r}")
+    return t
+
+
+def type_name(t: TypeID) -> str:
+    return _TYPE_TO_NAME[t]
+
+
+@dataclass(frozen=True)
+class Val:
+    """A typed value. Ref: types.Val (types/scalar_types.go)."""
+
+    tid: TypeID
+    value: Any
+
+    def __repr__(self) -> str:  # keep terse in planner debug dumps
+        return f"Val({type_name(self.tid)}:{self.value!r})"
+
+
+_RFC3339 = "%Y-%m-%dT%H:%M:%S"
+
+
+def parse_datetime(s: str) -> _dt.datetime:
+    """Accepts RFC3339 and its date-only prefixes, like the reference's
+    ParseTime (types/conversion.go:410 area).  fromisoformat (C speed)
+    first: it covers every format the strptime chain did except
+    year/year-month prefixes, and the chain's three failed strptime
+    attempts per date-only value dominated bulk-parse profiles."""
+    s = s.strip()
+    try:
+        return _dt.datetime.fromisoformat(s.replace("Z", "+00:00"))
+    except ValueError:
+        pass
+    for fmt in ("%Y-%m", "%Y"):
+        try:
+            return _dt.datetime.strptime(s, fmt)
+        except ValueError:
+            continue
+    raise ValueError(f"cannot parse {s!r} as datetime")
+
+
+def parse_vector(raw) -> "np.ndarray":
+    """`"[0.1, 0.2, ...]"` literal (or a list/array) -> float32 array.
+    Mirrors modern Dgraph's vfloat literal form (types/conversion.go
+    ParseVFloat): square brackets, comma or whitespace separated."""
+    import numpy as np
+
+    if isinstance(raw, np.ndarray):
+        arr = np.asarray(raw, dtype=np.float32)
+    elif isinstance(raw, (list, tuple)):
+        arr = np.asarray([float(x) for x in raw], dtype=np.float32)
+    else:
+        s = str(raw).strip()
+        if s.startswith("[") and s.endswith("]"):
+            s = s[1:-1]
+        parts = s.replace(",", " ").split()
+        if not parts:
+            raise ValueError(f"empty float32vector literal {raw!r}")
+        arr = np.asarray([float(p) for p in parts], dtype=np.float32)
+    if arr.ndim != 1 or not len(arr):
+        raise ValueError(f"float32vector must be a non-empty 1-D list, "
+                         f"got {raw!r}")
+    if not np.isfinite(arr).all():
+        raise ValueError("float32vector must be finite")
+    return arr
+
+
+def vector_value(v: Val) -> "np.ndarray":
+    """The float32 array behind a FLOAT32VECTOR Val (parses lazily if a
+    string literal slipped through unconverted)."""
+    import numpy as np
+
+    if isinstance(v.value, np.ndarray):
+        return v.value
+    return parse_vector(v.value)
+
+
+def convert(v: Val, to: TypeID) -> Val:
+    """Type conversion matrix. Ref: types.Convert (types/conversion.go:36).
+
+    Only the conversions the reference allows; anything else raises.
+    """
+    if v.tid == to:
+        return v
+    val = v.value
+    try:
+        if to == TypeID.STRING or to == TypeID.DEFAULT:
+            return Val(to, _to_string(v))
+        if to == TypeID.INT:
+            if v.tid in (TypeID.STRING, TypeID.DEFAULT):
+                return Val(to, int(str(val)))
+            if v.tid == TypeID.FLOAT:
+                return Val(to, int(val))
+            if v.tid == TypeID.BOOL:
+                return Val(to, 1 if val else 0)
+            if v.tid == TypeID.DATETIME:
+                return Val(to, int(val.timestamp()))
+        if to == TypeID.FLOAT:
+            if v.tid in (TypeID.STRING, TypeID.DEFAULT):
+                return Val(to, float(str(val)))
+            if v.tid == TypeID.INT:
+                return Val(to, float(val))
+            if v.tid == TypeID.BOOL:
+                return Val(to, 1.0 if val else 0.0)
+            if v.tid == TypeID.DATETIME:
+                return Val(to, val.timestamp())
+        if to == TypeID.BOOL:
+            if v.tid in (TypeID.STRING, TypeID.DEFAULT):
+                s = str(val).lower()
+                if s in ("true", "1"):
+                    return Val(to, True)
+                if s in ("false", "0"):
+                    return Val(to, False)
+                raise ValueError(s)
+            if v.tid == TypeID.INT:
+                return Val(to, val != 0)
+            if v.tid == TypeID.FLOAT:
+                return Val(to, val != 0.0)
+        if to == TypeID.DATETIME:
+            if v.tid in (TypeID.STRING, TypeID.DEFAULT):
+                return Val(to, parse_datetime(str(val)))
+            if v.tid == TypeID.INT:
+                return Val(to, _dt.datetime.fromtimestamp(int(val), _dt.timezone.utc))
+            if v.tid == TypeID.FLOAT:
+                return Val(to, _dt.datetime.fromtimestamp(float(val), _dt.timezone.utc))
+        if to == TypeID.PASSWORD and v.tid in (TypeID.STRING, TypeID.DEFAULT):
+            return Val(to, hash_password(str(val)))
+        if to == TypeID.BINARY:
+            return Val(to, _to_string(v).encode())
+        if to == TypeID.GEO and v.tid in (TypeID.STRING, TypeID.DEFAULT):
+            return Val(to, json.loads(str(val)))
+        if to == TypeID.FLOAT32VECTOR \
+                and v.tid in (TypeID.STRING, TypeID.DEFAULT):
+            return Val(to, parse_vector(val))
+    except (ValueError, TypeError) as e:
+        raise ValueError(
+            f"cannot convert {type_name(v.tid)} {val!r} to {type_name(to)}"
+        ) from e
+    raise ValueError(f"cannot convert {type_name(v.tid)} to {type_name(to)}")
+
+
+def _to_string(v: Val) -> str:
+    if v.tid == TypeID.FLOAT32VECTOR:
+        # repr(float32-upcast) round-trips exactly, so the string is a
+        # stable identity for fingerprints/conflict keys
+        return "[%s]" % ", ".join(
+            repr(float(x)) for x in vector_value(v))
+    if v.tid == TypeID.DATETIME:
+        return v.value.strftime(_RFC3339)
+    if v.tid == TypeID.BOOL:
+        return "true" if v.value else "false"
+    if v.tid == TypeID.GEO:
+        return json.dumps(v.value)
+    if v.tid == TypeID.BINARY:
+        return v.value.decode("utf-8", "replace")
+    return str(v.value)
+
+
+def iso8601(dt) -> str:
+    """RFC3339 text the way the reference emits time.Time (Go
+    MarshalJSON): naive values count as UTC and a zero offset renders
+    as 'Z', never '+00:00'."""
+    s = dt.isoformat()
+    if dt.tzinfo is None:
+        return s + "Z"
+    return s[:-6] + "Z" if s.endswith("+00:00") else s
+
+
+def to_json_value(v: Val) -> Any:
+    """Value as it appears in a query JSON response (ref
+    query/outputnode.go fastJsonNode valToBytes)."""
+    if v.tid == TypeID.DATETIME:
+        return iso8601(v.value)
+    if v.tid == TypeID.FLOAT32VECTOR:
+        return [float(x) for x in vector_value(v)]
+    if v.tid in (TypeID.INT, TypeID.FLOAT, TypeID.BOOL, TypeID.GEO):
+        return v.value
+    if v.tid == TypeID.BINARY:
+        import base64
+
+        return base64.b64encode(v.value).decode()
+    if v.tid == TypeID.PASSWORD:
+        return str(v.value)
+    return str(v.value)
+
+
+# ---------------------------------------------------------------------------
+# Sortable keys: the bridge to the device.  Order-by / inequality semantics
+# on TPU need every comparable value as one int64/float64 scalar.
+# Ref: the reference sorts via collation-aware multi-key sort
+# (types/sort.go:89,118); we instead derive order-preserving int64 keys so
+# lax.top_k / jnp.argsort do the work on device.
+# ---------------------------------------------------------------------------
+
+
+def sort_key(v: Val) -> int:
+    """Order-preserving int64 key for a value (within one TypeID).
+
+    Strings use the first 8 bytes of the UTF-8 encoding (byte collation —
+    matches the reference's default non-lang collation); ties are broken
+    host-side.
+    """
+    t, val = v.tid, v.value
+    if t == TypeID.INT:
+        return int(val)
+    if t == TypeID.BOOL:
+        return 1 if val else 0
+    if t == TypeID.DATETIME:
+        return int(val.timestamp() * 1_000_000)
+    if t == TypeID.FLOAT:
+        # IEEE754 total-order trick: flip all bits for negatives, set the
+        # sign bit for positives -> monotone unsigned key; recenter to
+        # signed int64 range for the device.
+        bits = struct.unpack("<q", struct.pack("<d", float(val)))[0]
+        u = (~bits & ((1 << 64) - 1)) if bits < 0 else (bits | (1 << 63))
+        return u - (1 << 63)
+    if t in (TypeID.STRING, TypeID.DEFAULT):
+        b = str(val).encode("utf-8")[:8].ljust(8, b"\x00")
+        return int.from_bytes(b, "big", signed=False) - (1 << 63)
+    raise ValueError(f"type {type_name(t)} is not sortable")
+
+
+def value_fingerprint(v: Val) -> int:
+    """Stable 64-bit fingerprint of a value, used for conflict keys and the
+    'hash' index (ref x/x.go fingerprinting of values for conflict
+    detection, posting/index.go:305)."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(bytes([int(v.tid)]))
+    h.update(_to_string(v).encode())
+    return int.from_bytes(h.digest(), "big")

@@ -1,22 +1,407 @@
-"""Process-wide named counters: the part of `dgraph_tpu/utils/metrics.py`
-the vector plane uses. `ops/ivf.py` counts index builds and served
-quantized searches here; a caller reads a count with `counter`."""
+"""Metrics registry: counters, gauges, histograms + Prometheus text render.
+
+Re-provides the reference's OpenCensus stat surface (x/metrics.go:40-100 —
+num_queries_total, num_mutations_total, num_edges_total, latency, pending
+work, memory gauges) with a dependency-free registry; the HTTP server
+exposes it at /debug/prometheus_metrics like the reference's bridged
+Prometheus exporter (x/metrics.go:258 RegisterExporters).
+"""
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_right
 
-_lock = threading.Lock()
-_counts: dict[str, int] = {}
+_LOCK = threading.Lock()
+_COUNTERS: dict[tuple[str, tuple], float] = {}
+_GAUGES: dict[tuple[str, tuple], float] = {}
+_HISTOGRAMS: dict[tuple[str, tuple], list[int]] = {}
+_HISTO_SUM: dict[tuple[str, tuple], float] = {}
+
+# latency buckets in ms (ref x/metrics.go defaultLatencyMsDistribution)
+BUCKETS = [0.1, 0.5, 1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500,
+           5000, 10000]
+
+# Histograms whose unit is NOT milliseconds get their own bucket
+# table (the global one spans 0.1ms..10s and would collapse a
+# sub-millisecond fsync into one bucket). Keyed by metric name; every
+# snapshot/render path consults this so the exposition's `le` edges
+# always match the counts.
+BUCKETS_BY_NAME: dict[str, list[float]] = {
+    # seconds: fsync on a healthy NVMe is ~50-500us, a dying volume
+    # is 0.1-2.5s — the watchdog's p99 stall rule needs resolution at
+    # both ends
+    "dgraph_wal_fsync_seconds": [
+        0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+        0.05, 0.1, 0.25, 0.5, 1.0, 2.5],
+}
 
 
-def inc_counter(name: str) -> None:
-    """Add one to the counter `name`."""
-    with _lock:
-        _counts[name] = _counts.get(name, 0) + 1
+def buckets_for(name: str) -> list[float]:
+    return BUCKETS_BY_NAME.get(name, BUCKETS)
+
+# Registry of every metric name the tree emits. Metric names are API
+# (dashboards and alerts key on them), so dglint DG08 checks each
+# literal inc_counter/set_gauge/observe name against this tuple — a
+# typo'd name forks a series nobody reads, a duplicate entry here is
+# a copy-paste smell. Keep sorted within each group.
+REGISTERED = (
+    # engine (engine/db.py, engine/lazy_tablets.py, engine/tile_cache.py)
+    "codec_scratch_bytes",
+    "device_cache_bytes",
+    "device_cache_evictions",
+    "device_cache_tiles",
+    "dgraph_num_edges_total",
+    "dgraph_num_mutations_total",
+    "dgraph_num_queries_total",
+    "dgraph_query_latency_ms",
+    "dgraph_txn_aborts_total",
+    "host_tile_bytes",
+    "tablet_store_evictions",
+    "tablet_store_loads",
+    # serving edge (server/http.py)
+    "dgraph_pending_queries",
+    "dgraph_queries_shed_total",
+    # compiled plan cache + micro-batcher (query/plan.py,
+    # engine/batcher.py)
+    "batch_dispatches",
+    "batch_occupancy",
+    "plan_cache_evictions",
+    "plan_cache_hits",
+    "plan_cache_misses",
+    # adaptive planner (query/planner.py)
+    "planner_decisions_total",
+    "planner_estimate_violations_total",
+    "planner_explored_total",
+    "planner_reoptimized_total",
+    "planner_replans_suppressed_total",
+    # whole-plan fusion + cold-store prefetch (query/fusion.py,
+    # engine/prefetch.py)
+    "prefetch_bytes_total",
+    "prefetch_hits_total",
+    "prefetch_misses_total",
+    "prefetch_queue_depth",
+    "query_fused_dispatch_total",
+    # query executor tier counters (query/executor.py)
+    "query_columnar_var_bind_total",
+    "query_colvar_hits_total",
+    "query_compressed_fallback_total",
+    "query_compressed_setops_total",
+    "query_device_count_page_total",
+    "query_device_expand_total",
+    "query_device_multisort_total",
+    "query_device_orderkeys_total",
+    "query_device_overlay_expand_total",
+    "query_device_range_total",
+    "query_device_setops_total",
+    "query_device_sort_page_total",
+    "query_device_sssp_total",
+    "query_flat_json_total",
+    "query_groupby_fast_total",
+    "query_index_csr_probe_total",
+    "query_match_batch_total",
+    "query_order_presorted_total",
+    "query_postings_fallback_total",
+    "query_regexp_batch_total",
+    "query_sharded_expand_total",
+    "query_similar_device_total",
+    "query_similar_quantized_total",
+    "query_similar_sharded_total",
+    # quantized vector index (ops/ivf.py, storage/vecstore.py)
+    "vector_index_builds_total",
+    "vector_index_bytes",
+    "vector_quantized_searches_total",
+    # change streams (cdc/changelog.py)
+    "dgraph_cdc_appended_total",
+    "dgraph_cdc_delivered_total",
+    "dgraph_cdc_heartbeats_total",
+    "dgraph_cdc_tail_entries",
+    "dgraph_cdc_truncated_total",
+    # distributed ingest (ingest/distributed.py)
+    "dgraph_ingest_mapped_total",
+    "dgraph_ingest_reduced_total",
+    "dgraph_ingest_shuffled_bytes_total",
+    # cluster (cluster/transport.py, cluster/service.py apply path)
+    "dgraph_raft_apply_lag",
+    "raft_send_drops",
+    # WAL durability (storage/wal.py fsync sites)
+    "dgraph_wal_fsync_seconds",
+    # alerting / incident flight recorder (utils/watchdog.py,
+    # utils/alerts.py)
+    "dgraph_alerts_firing",
+    "dgraph_incidents_total",
+    "dgraph_watchdog_ticks_total",
+    # live tablet moves / rebalancer (cluster/service.py ZeroServer)
+    "dgraph_move_catchup_lag",
+    "dgraph_move_duration_ms",
+    "dgraph_move_streamed_bytes_total",
+    "dgraph_tablet_moves_total",
+    # cross-cluster async replication (cluster/replication.py)
+    "dgraph_repl_lag_entries",
+    "dgraph_repl_promote_rto_ms",
+    "dgraph_repl_streamed_bytes_total",
+    # read scale-out serving tier (engine/result_cache.py,
+    # cluster/service.py learner/follower reads, server/qos.py)
+    "dgraph_learner_lag",
+    "dgraph_result_cache_entries",
+    "dgraph_result_cache_hits_total",
+    "dgraph_result_cache_invalidations_total",
+    "dgraph_result_cache_misses_total",
+    "dgraph_stale_reads_total",
+    "dgraph_tenant_shed_total",
+    # network fault plane (utils/netfault.py)
+    "dgraph_net_fault_delays_total",
+    "dgraph_net_fault_drops_total",
+    "dgraph_net_fault_dups_total",
+    "dgraph_net_fault_rules",
+    # process gauges (utils/metrics.py collect_memory_gauges /
+    # collect_runtime_gauges)
+    "memory_inuse_bytes",
+    "memory_proc_bytes",
+    "process_gc_collections",
+    "process_gc_objects",
+    "process_open_fds",
+    "process_threads",
+    "process_uptime_seconds",
+)
 
 
-def counter(name: str) -> int:
-    """The current value of the counter `name` (0 if never counted)."""
-    with _lock:
-        return _counts.get(name, 0)
+def _key(name: str, labels: dict | None) -> tuple[str, tuple]:
+    return name, tuple(sorted((labels or {}).items()))
+
+
+def inc_counter(name: str, value: float = 1, labels: dict | None = None):
+    k = _key(name, labels)
+    with _LOCK:
+        _COUNTERS[k] = _COUNTERS.get(k, 0) + value
+
+
+def set_gauge(name: str, value: float, labels: dict | None = None):
+    with _LOCK:
+        _GAUGES[_key(name, labels)] = value
+
+
+def get_counter(name: str, labels: dict | None = None) -> float:
+    """One counter's current value (0 when never incremented) — for
+    derived stats like the result cache's hit rate."""
+    with _LOCK:
+        return _COUNTERS.get(_key(name, labels), 0.0)
+
+
+def counter(name: str) -> float:
+    """The unlabelled counter `name` (0 when never incremented): the
+    port's short form of `get_counter(name)`."""
+    return get_counter(name)
+
+
+def observe(name: str, value_ms: float, labels: dict | None = None):
+    """One histogram observation. The value's unit is milliseconds
+    for default-bucket metrics; BUCKETS_BY_NAME entries define their
+    own unit (the name says which, e.g. *_seconds)."""
+    k = _key(name, labels)
+    edges = buckets_for(name)
+    with _LOCK:
+        h = _HISTOGRAMS.get(k)
+        if h is None:
+            h = [0] * (len(edges) + 1)
+            _HISTOGRAMS[k] = h
+        h[bisect_right(edges, value_ms)] += 1
+        _HISTO_SUM[k] = _HISTO_SUM.get(k, 0) + value_ms
+
+
+def reset():
+    with _LOCK:
+        _COUNTERS.clear()
+        _GAUGES.clear()
+        _HISTOGRAMS.clear()
+        _HISTO_SUM.clear()
+
+
+def snapshot() -> dict:
+    with _LOCK:
+        return {
+            "counters": {_fmt_key(k): v for k, v in _COUNTERS.items()},
+            "gauges": {_fmt_key(k): v for k, v in _GAUGES.items()},
+        }
+
+
+def histograms_snapshot() -> dict:
+    """Histogram state keyed by formatted series name: bucket counts
+    (aligned to BUCKETS + one +Inf tail) and the running sum. The
+    machine-readable side of render_prometheus — /debug/stats carries
+    it so dgtop computes rate/percentile deltas without scraping and
+    re-parsing the text exposition."""
+    with _LOCK:
+        return {_fmt_key(k): {"buckets": list(h),
+                              "sum": _HISTO_SUM.get(k, 0.0),
+                              "le": list(buckets_for(k[0]))}
+                for k, h in _HISTOGRAMS.items()}
+
+
+def _escape_label(v) -> str:
+    """Prometheus text-format 0.0.4 label-value escaping: backslash,
+    double-quote and newline must be escaped or the emitted series is
+    malformed (a bare quote in a value ends the label early)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt_key(k: tuple[str, tuple]) -> str:
+    name, labels = k
+    if not labels:
+        return name
+    inner = ",".join(f'{lk}="{_escape_label(lv)}"' for lk, lv in labels)
+    return f"{name}{{{inner}}}"
+
+
+def gauges_snapshot() -> dict[str, float]:
+    """Gauge state keyed by formatted series name — /debug/stats
+    carries it so dgtop's per-node RSS/thread columns (and any other
+    collector) read the process gauges without scraping and re-parsing
+    the text exposition."""
+    with _LOCK:
+        return {_fmt_key(k): v for k, v in _GAUGES.items()}
+
+
+def counters_snapshot() -> dict[str, float]:
+    """Counter state keyed by formatted series name — the 'before'
+    half of a per-request profile diff (server/http.py debug=true)."""
+    with _LOCK:
+        return {_fmt_key(k): v for k, v in _COUNTERS.items()}
+
+
+def counters_delta(before: dict[str, float]) -> dict[str, float]:
+    """Non-zero counter movement since `before` (a counters_snapshot):
+    the per-request tier-routing profile — columnar hits, device ops,
+    postings fallbacks, cache evictions — as a metrics diff instead of
+    bespoke plumbing through the executor."""
+    out: dict[str, float] = {}
+    for k, v in counters_snapshot().items():
+        d = v - before.get(k, 0)
+        if d:
+            out[k] = d
+    return out
+
+
+# Linux procfs probe, evaluated once: the /proc/self sources below
+# are Linux-only, and a gauge plane must DEGRADE on macOS / locked-
+# down sandboxes (gauges simply absent) — never raise out of a
+# scrape. The per-call try/excepts stay as a second belt: a probe
+# that passed at import can still fail later (fd limits, seccomp).
+import os as _os_mod  # noqa: E402
+
+_PROC_SELF_OK = _os_mod.path.isdir("/proc/self")
+
+
+def collect_memory_gauges():
+    """Process memory gauges (ref x/metrics.go MemoryInUse/MemoryProc:
+    the reference samples Go runtime + proc stats into gauges). Reads
+    /proc/self/statm — free on Linux; silently skipped elsewhere."""
+    if not _PROC_SELF_OK:
+        return
+    try:
+        with open("/proc/self/statm") as f:
+            parts = f.read().split()
+        page = _os_mod.sysconf("SC_PAGE_SIZE")
+        set_gauge("memory_proc_bytes", int(parts[0]) * page)   # vsize
+        set_gauge("memory_inuse_bytes", int(parts[1]) * page)  # rss
+    except (OSError, ValueError, IndexError):
+        pass
+
+
+# process start, for the uptime gauge: monotonic on purpose — an NTP
+# step must not make a node's uptime jump in a scrape series
+import time as _time_mod  # noqa: E402
+
+_STARTED_AT_MONO = _time_mod.monotonic()
+
+
+def collect_runtime_gauges():
+    """Process runtime gauges next to the memory ones (ref
+    x/metrics.go sampling Go runtime stats: goroutines, GC cycles):
+    open fds (a leaking transport shows here first), live threads, GC
+    generation object counts + cumulative collections, and uptime.
+    Cheap enough to run on every scrape/stats poll."""
+    import gc
+
+    set_gauge("process_threads", threading.active_count())
+    set_gauge("process_uptime_seconds",
+              round(_time_mod.monotonic() - _STARTED_AT_MONO, 3))
+    for gen, count in enumerate(gc.get_count()):
+        set_gauge("process_gc_objects", count,
+                  labels={"gen": str(gen)})
+    for gen, st in enumerate(gc.get_stats()):
+        set_gauge("process_gc_collections", st.get("collections", 0),
+                  labels={"gen": str(gen)})
+    if not _PROC_SELF_OK:
+        return  # non-Linux: no cheap fd count — gauge stays absent
+    try:
+        set_gauge("process_open_fds",
+                  len(_os_mod.listdir("/proc/self/fd")))
+    except OSError:
+        pass  # probe raced a sandbox tightening; degrade, don't raise
+
+
+def collect_process_gauges():
+    """Memory + runtime gauges in one call — what the /debug/stats
+    handlers refresh so a poll always reads current values."""
+    collect_memory_gauges()
+    collect_runtime_gauges()
+
+
+# extra exposition renderers: other always-on stat planes (the
+# observed-cost store, utils/coststore.py) register a zero-arg
+# callable returning pre-formatted exposition text ("" when empty);
+# render_prometheus appends each so every registered plane rides the
+# one /debug/prometheus_metrics endpoint
+_RENDERERS: list = []
+
+
+def register_renderer(fn) -> None:
+    if fn not in _RENDERERS:
+        _RENDERERS.append(fn)
+
+
+def render_prometheus() -> str:
+    """Prometheus text exposition format 0.0.4."""
+    collect_memory_gauges()
+    collect_runtime_gauges()
+    lines: list[str] = []
+    typed: set[str] = set()  # one TYPE line per metric name
+
+    def _type_line(name: str, kind: str):
+        if name not in typed:
+            typed.add(name)
+            lines.append(f"# TYPE {name} {kind}")
+
+    with _LOCK:
+        for k, v in sorted(_COUNTERS.items()):
+            _type_line(k[0], "counter")
+            lines.append(f"{_fmt_key(k)} {v}")
+        for k, v in sorted(_GAUGES.items()):
+            _type_line(k[0], "gauge")
+            lines.append(f"{_fmt_key(k)} {v}")
+        for k, h in sorted(_HISTOGRAMS.items()):
+            name, labels = k
+            _type_line(name, "histogram")
+            cum = 0
+            for i, b in enumerate(buckets_for(name)):
+                cum += h[i]
+                lb = dict(labels)
+                lb["le"] = str(b)
+                lines.append(f"{_fmt_key((name + '_bucket', tuple(sorted(lb.items()))))} {cum}")
+            cum += h[-1]
+            lb = dict(labels)
+            lb["le"] = "+Inf"
+            lines.append(f"{_fmt_key((name + '_bucket', tuple(sorted(lb.items()))))} {cum}")
+            lines.append(f"{_fmt_key((name + '_count', labels))} {cum}")
+            lines.append(f"{_fmt_key((name + '_sum', labels))} "
+                         f"{_HISTO_SUM.get(k, 0)}")
+    for fn in list(_RENDERERS):
+        try:
+            extra = fn()
+        except Exception:
+            continue
+        if extra:
+            lines.append(extra.rstrip("\n"))
+    return "\n".join(lines) + "\n"
