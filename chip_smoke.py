@@ -124,7 +124,51 @@ PyTorch, no kernel of its own:
    sel_count past FUSED_SEL_CAP on the 16-value key.
 Each op of phases 19-21 is timed by CUDA events beside its bytes bound.
 
-The planes run in the order BFS, graph ops, set algebra, vectors. Each
+The engine's write-path plane (`engine/db.GraphDB` over `storage/`,
+`cdc/` and `wire/`), on the golden movie graph (tests/golden/dataset.py,
+the shape of the reference's systest/21million film graph) at scale 10,
+about 267k RDF, plus 262,144 x 128 float32 embeddings (`gen_corpus`,
+seed 0):
+
+22. load: `GraphDB(device="cuda:0", plan_cache_size=0, wal_path=...)`
+   takes the graph as RDF and the embeddings as JSON, in transactions of
+   1,000 N-Quads (the default batch of `dgraph live`), every commit
+   framed into the WAL; RDF/s and vectors/s;
+23. rollup: `rollup_all(0)` with the launch counts set to 0 just before:
+   it trains the embedding predicate's IVF index on the card
+   (vecstore.build_ivf -> ivf.build), whose calibration launches
+   score_int8_lists once a ladder step, asserted equal to the steps the
+   index's nprobe implies, every other kernel 0 times, and no
+   `vector_index_build_failed` in the engine's log; host seconds and the
+   build's device time (CUDA events around each device step: no
+   profiler session spans the rollup, whose long host stretches would
+   blind the set-algebra plane's profile); recall@10 >= 0.95 over 256 queries against
+   `exact_topk_blocked`, the search equal to the same with the plain
+   score_int8_lists; the last calibration launch beside its plain
+   version and bound, score by score within phase 8's bound;
+24. durability: the engine closed, its WAL replayed into a fresh GraphDB
+   on the card and one on the CPU, every predicate's dump_tablet bytes
+   equal to the engine's before rollup; `save_snapshot` of the engine
+   and `load_snapshot` on the card equal to it after rollup, the index
+   included; replay rates;
+25. tiles on the card: `device_adjacency` of every uid predicate,
+   `device_radjacency` of the @reverse ones, `device_bitadjacency` of
+   starring and `device_values` of rating, runtime and
+   initial_release_date, each equal to the same tile built on the CPU;
+   DeviceCacheLRU's device column equal to the tiles' tensor bytes and
+   to the growth of memory_allocated up to 512-byte blocks; under a
+   budget of half of it, admitting one more tile evicts the oldest
+   tiles and frees their bytes on the card;
+26. reads on the card: `GraphDB.bfs` at depth 3 from 64 seed sets on
+   starring, genre and director.film, level by level equal to the host
+   overlay path; `expand_np` of 8, 1,024 and all sources equal to
+   `expand_frontier`; then 10,000 mixed sets and deletes under an open
+   transaction: `device_adjacency` None while dirty, and after rollup
+   the rebuilt tiles equal the CPU-built and the host reads. Each read
+   is timed beside its bytes bound.
+
+The planes run in the order BFS, graph ops, write path, set algebra,
+vectors. Each
 figure is printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
@@ -1197,6 +1241,543 @@ def graph_plane(dev, card: str) -> None:
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB | {card}")
 
 
+# -- the engine's write-path plane (phases 22-26) ---------------------------
+
+GOLDEN_SCALE = 10                  # tests/golden/dataset.py: ~267k RDF
+WRITE_BATCH = 1000                 # N-Quads a transaction (dgraph live)
+WRITE_VECS = 1 << 18               # 2 x the engine's vec_index_min_rows
+WRITE_DIM = 128                    # SIFT1M's width
+VEC_UID0 = 1 << 24                 # above every golden uid at scale 10
+WRITE_QUERIES = 256
+BFS_SETS = 64
+BFS_SEEDS = 8
+WRITE_BFS_PREDS = ("starring", "genre", "director.film")
+WRITE_VALUE_PREDS = ("rating", "runtime", "initial_release_date")
+MIXED_OPS = 10_000
+WRITE_REPS = 3
+
+
+def golden_dataset():
+    """tests/golden/dataset.py, loaded by its path: the movie graph's
+    generator, which imports only numpy (no part of either package)."""
+    import importlib.util
+
+    path = os.path.join(REPO, "tests", "golden", "dataset.py")
+    spec = importlib.util.spec_from_file_location("golden_dataset", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tablet_dumps(db, wire, snapshot) -> dict:
+    """{predicate -> wire bytes of its dump_tablet}."""
+    return {p: wire.dumps(snapshot.dump_tablet(t))
+            for p, t in sorted(db.tablets.items())}
+
+
+def same_dumps(label: str, got: dict, want: dict) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: predicates {sorted(got)} != "
+                             f"{sorted(want)}")
+    bad = [p for p in want if got[p] != want[p]]
+    if bad:
+        raise AssertionError(f"{label}: dump_tablet bytes differ for {bad}")
+
+
+def tile_tensors(obj) -> list:
+    """Every tensor a tile holds (dataclass fields, lists), in order."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in tile_tensors(x)]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj)
+                for t in tile_tensors(getattr(obj, f.name))]
+    return []
+
+
+def tile_alloc(obj) -> tuple[int, int]:
+    """(tensor bytes, the allocator's bytes) of a tile: the latter over
+    its distinct storages, each rounded up to 512 bytes, the caching
+    allocator's block size."""
+    ts = tile_tensors(obj)
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in ts}
+    return (sum(t.nbytes for t in ts),
+            sum(-(-n // 512) * 512 for n in storages.values()))
+
+
+def same_tile(label: str, got, want) -> None:
+    """A tile on the card equal, field by field, to one built on the CPU."""
+    import dataclasses
+
+    if isinstance(want, torch.Tensor):
+        if got.device.type != "cuda" or got.dtype != want.dtype or \
+                not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{label}: tensor differs from the CPU's "
+                                 f"or is not on the card")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_tile(f"{label}[{i}]", g, w)
+    elif dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            if f.name != "device":
+                same_tile(f"{label}.{f.name}", getattr(got, f.name),
+                          getattr(want, f.name))
+    elif isinstance(want, np.ndarray):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: host array differs")
+    elif got != want:
+        raise AssertionError(f"{label}: {got!r} != {want!r}")
+
+
+def calibration_steps(ivf, ix) -> int:
+    """Ladder steps `ivf._calibrate` walked to the index's nprobe: up to
+    the first that cleared the target (or reached nlist), else all."""
+    ladder = [min(p, ix.nlist) for p in ivf.NPROBE_LADDER]
+    if ix.sample_recall >= ix.target_recall or ix.nprobe >= ix.nlist:
+        return ladder.index(ix.nprobe) + 1
+    return len(ladder)
+
+
+def reset_launches(kernels) -> None:
+    for fn in (kernels.bucket_or, kernels.bucket_or_level,
+               kernels.score_dot, kernels.score_int8, kernels.bitmap_and):
+        fn.launches = 0
+
+
+def mixed_round(rng, tablets, n_ops: int) -> list[str]:
+    """n_ops seeded sets and deletes over the graph's uid predicates, in
+    transactions of WRITE_BATCH: new and deleted starring, genre and
+    director.film edges, and S P * deletes."""
+    out, cur = [], []
+    srcs = {p: np.fromiter(tablets[p].edges, np.int64)
+            for p in WRITE_BFS_PREDS}
+    dsts = {p: np.fromiter(tablets[p].reverse or
+                           {int(d) for v in tablets[p].edges.values()
+                            for d in v}, np.int64)
+            for p in WRITE_BFS_PREDS}
+    for i in range(n_ops):
+        p = WRITE_BFS_PREDS[i % len(WRITE_BFS_PREDS)]
+        s = int(rng.choice(srcs[p]))
+        kind = i % 10
+        if kind < 6:
+            cur.append(f"+<{s:#x}> <{p}> <{int(rng.choice(dsts[p])):#x}> .")
+        elif kind < 9:
+            row = tablets[p].edges.get(s)
+            if row is not None and len(row):
+                cur.append(f"-<{s:#x}> <{p}> <{int(row[0]):#x}> .")
+            else:
+                cur.append(f"-<{s:#x}> <{p}> * .")
+        else:
+            cur.append(f"-<{s:#x}> <{p}> * .")
+        if len(cur) == WRITE_BATCH:
+            out.append(cur)
+            cur = []
+    if cur:
+        out.append(cur)
+    return out
+
+
+def write_plane(dev, card: str) -> dict:
+    """Phases 22-26: the engine's write path (`engine/db.GraphDB` over
+    `storage/`, `cdc/`, `wire/`) on the card, its WAL and snapshot in a
+    scratch directory under build/. Returns the kernels line's entry of
+    score_int8_lists as rollup drives it."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "write_plane")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        return write_phases(dev, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def write_phases(dev, card: str, work: str) -> dict:
+    import io
+
+    from dgraph_tpu_torch import wire
+    from dgraph_tpu_torch.bench import vectors as bv
+    from dgraph_tpu_torch.engine import device_cache as dc
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.ops import bitgraph, graph, ivf, kernels
+    from dgraph_tpu_torch.storage import snapshot, vecstore
+    from dgraph_tpu_torch.utils.logger import log as engine_log
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wal = os.path.join(work, "engine.wal")
+
+    # -- 22. load ----------------------------------------------------------
+    ds = golden_dataset()
+    t0 = time.perf_counter()
+    schema, lines = ds.generate(GOLDEN_SCALE)
+    vecs = bv.gen_corpus(WRITE_VECS, WRITE_DIM, seed=0)
+    row_fmt = "[" + ",".join(["%.9g"] * WRITE_DIM) + "]"
+    rows = [row_fmt % tuple(r) for r in vecs.tolist()]
+    gen_s = time.perf_counter() - t0
+    db = GraphDB(device=dev, plan_cache_size=0, wal_path=wal,
+                 vec_index_min_rows=WRITE_VECS // 2)
+    db.alter(schema + "embedding: float32vector .\n")
+    t0 = time.perf_counter()
+    for s in range(0, len(lines), WRITE_BATCH):
+        db.mutate(set_nquads="\n".join(lines[s:s + WRITE_BATCH]))
+    rdf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s in range(0, WRITE_VECS, WRITE_BATCH):
+        db.mutate(set_json=[{"uid": hex(VEC_UID0 + i), "embedding": rows[i]}
+                            for i in range(s, min(WRITE_VECS,
+                                                  s + WRITE_BATCH))])
+    vec_s = time.perf_counter() - t0
+    del rows
+    n_txn = -(-len(lines) // WRITE_BATCH) + -(-WRITE_VECS // WRITE_BATCH)
+    log(f"write path, load: golden movie graph at scale {GOLDEN_SCALE}, "
+        f"{len(lines)} RDF in {rdf_s:.2f} s ({len(lines) / rdf_s:.0f} "
+        f"RDF/s), then {WRITE_VECS} x {WRITE_DIM} float32 embeddings as "
+        f"JSON in {vec_s:.2f} s ({WRITE_VECS / vec_s:.0f} vectors/s), "
+        f"{n_txn} transactions of {WRITE_BATCH}, each committed to the WAL "
+        f"({os.path.getsize(wal) / 2**20:.1f} MiB); data set-up "
+        f"{gen_s:.1f} s | {card}")
+    t0 = time.perf_counter()
+    before_rollup = tablet_dumps(db, wire, snapshot)
+    dump_s = time.perf_counter() - t0
+
+    # -- 23. rollup --------------------------------------------------------
+    calls = []
+
+    def recorded(codes, qs, table, out, **kw):
+        calls.append((codes, qs, table, out, kw))
+        return kernels.score_int8_lists(codes, qs, table, out, **kw)
+
+    # the index build's device steps, each timed by a pair of CUDA events
+    # (no profiler: a session spanning the rollup's long host stretches
+    # leaves the next session in the process blind to copies)
+    spans = []
+
+    def timed(fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((start, end))
+            return out
+        return run
+
+    steps_fns = {"_assign": ivf._assign, "_probe": ivf._probe,
+                 "_approx_scores_device": ivf._approx_scores_device}
+    to_device = ivf.IVFIndex.to_device
+    logged = io.StringIO()
+    stream, engine_log.stream = engine_log.stream, logged
+    ivf.score_int8_lists = recorded
+    for name, fn in steps_fns.items():
+        setattr(ivf, name, timed(fn))
+    ivf.IVFIndex.to_device = timed(to_device)
+    try:
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        db.rollup_all(0)
+        torch.cuda.synchronize()
+        rollup_s = time.perf_counter() - t0
+        launches = kernels.score_int8.launches
+        others = {f.__name__: f.launches for f in (
+            kernels.bucket_or, kernels.bucket_or_level,
+            kernels.score_dot, kernels.bitmap_and)}
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+        for name, fn in steps_fns.items():
+            setattr(ivf, name, fn)
+        ivf.IVFIndex.to_device = to_device
+        engine_log.stream = stream
+    dev_ms = sum(a.elapsed_time(b) for a, b in spans)
+    tab = db.tablets["embedding"]
+    ix = tab.vector_ivf()
+    if ix is None or ix.device != dev:
+        raise AssertionError("rollup trained no vector index on the card")
+    if "vector_index_build_failed" in logged.getvalue():
+        raise AssertionError(f"rollup logged {logged.getvalue()!r}")
+    steps = calibration_steps(ivf, ix)
+    if launches != steps or len(calls) != steps or any(others.values()):
+        raise AssertionError(
+            f"rollup launched score_int8_lists {launches} times ({len(calls)}"
+            f" recorded calls) for {steps} calibration steps; other kernels "
+            f"{others}")
+    log(f"rollup_all(0): {rollup_s:.2f} s on the host for {len(db.tablets)} "
+        f"tablets; the vector index {ix.describe()} trained on the card, "
+        f"score_int8_lists launched {launches} times = {steps} calibration "
+        f"steps (nprobe ladder {list(ivf.NPROBE_LADDER)} to {ix.nprobe}), "
+        f"every other kernel 0; device time of the index build "
+        f"{dev_ms:.3f} ms over its {len(spans)} device steps (CUDA events "
+        f"around each assignment, upload, probe and approximate stage, "
+        f"copies included), idle share {1 - dev_ms / (rollup_s * 1e3):.6f}"
+        f" of the rollup | {card}")
+
+    uids, block = vecstore._base_block(tab)
+    if not np.array_equal(block, vecs) or not np.array_equal(
+            uids, VEC_UID0 + np.arange(WRITE_VECS, dtype=np.uint64)):
+        raise AssertionError("the vector tablet's base block != the corpus")
+    queries = bv.draw_queries(vecs, WRITE_QUERIES)
+    exact = ivf.exact_topk_blocked(vecs, queries, VEC_K, metric=VEC_METRIC)
+    got, _ = ivf.search(ix, vecs, queries, VEC_K, VEC_METRIC)
+    rec = bv.recall(exact, got)
+    ivf.score_int8_lists = kernels.score_int8_lists_reference
+    try:
+        plain, _ = ivf.search(ix, vecs, queries, VEC_K, VEC_METRIC)
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+    flips = same_topk("rollup index vs plain", got, plain, vecs, queries,
+                      VEC_METRIC, (WRITE_DIM + 4) * 2.0 ** -24)
+    if rec < bv.RECALL_FLOOR:
+        raise AssertionError(f"rollup index recall@{VEC_K} {rec} < "
+                             f"{bv.RECALL_FLOOR}")
+    codes_s, q_s, table_s, out_s, kw_s = calls[-1]
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
+        codes_s, q_s, table_s, out_s, **kw_s), 20, flush)
+    del flush
+    plain_out = torch.empty_like(out_s)
+    plain_ms = cuda_ms(lambda: kernels.score_int8_lists_reference(
+        codes_s, q_s, table_s, plain_out, **kw_s), 3)
+    err, ratio = lists_within_bound(codes_s, q_s, table_s, out_s, plain_out,
+                                    kw_s, "score_int8_lists, last "
+                                    "calibration step")
+    int8_bound, int8_by = lists_bound_ms(codes_s, q_s, table_s)
+    _, ln, _, m, _ = table_s.T
+    log(f"rollup index at nprobe {ix.nprobe}: recall@{VEC_K} {rec} over "
+        f"{WRITE_QUERIES} queries against exact_topk_blocked (>= "
+        f"{bv.RECALL_FLOOR}); answer = the plain score_int8_lists' "
+        f"({flips} rounding flips); the last calibration step's launch "
+        f"({len(table_s)} entries, {int((m * ln).sum())} scores, worst "
+        f"error/bound {ratio:.4g}): kernel {int8_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {int8_bound:.4f} ms ({int8_by}) | {card}")
+    del calls, codes_s, q_s, out_s, plain_out
+    after_rollup = tablet_dumps(db, wire, snapshot)
+
+    # -- 24. durability ----------------------------------------------------
+    db.close()
+    replays = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        other = GraphDB(device=where, plan_cache_size=0, wal_path=wal,
+                        vec_index_min_rows=WRITE_VECS // 2)
+        replays[name] = time.perf_counter() - t0
+        same_dumps(f"WAL replay on {where}", tablet_dumps(
+            other, wire, snapshot), before_rollup)
+        other.close()
+        del other
+    snap = os.path.join(work, "engine.snap")
+    t0 = time.perf_counter()
+    snapshot.save_snapshot(db, snap)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = snapshot.load_snapshot(snap, device=dev)
+    load_s = time.perf_counter() - t0
+    same_dumps("snapshot", tablet_dumps(restored, wire, snapshot),
+               after_rollup)
+    if restored.tablets["embedding"].vector_ivf().device != dev:
+        raise AssertionError("the restored vector index is not on the card")
+    del restored
+    n_rec = len(lines) + WRITE_VECS
+    log(f"durability: WAL replay ({n_txn} commit records, {n_rec} edges) "
+        f"into a fresh GraphDB on the card {replays['card']:.2f} s "
+        f"({n_rec / replays['card']:.0f} edges/s), on the CPU "
+        f"{replays['cpu']:.2f} s ({n_rec / replays['cpu']:.0f} edges/s); "
+        f"every predicate's dump_tablet bytes equal the engine's before "
+        f"rollup (dumped in {dump_s:.2f} s); save_snapshot {save_s:.2f} s "
+        f"({os.path.getsize(snap) / 2**20:.1f} MiB), load_snapshot on the "
+        f"card {load_s:.2f} s, equal to the engine's after rollup | {card}")
+    torch.cuda.empty_cache()
+
+    # -- 25. tiles on the card ---------------------------------------------
+    ts = db.coordinator.max_assigned()
+    uid_preds = sorted(p for p, t in db.tablets.items() if t.is_uid)
+    builds = ([("_device_adj", p) for p in uid_preds]
+              + [("_device_radj", p) for p in uid_preds
+                 if db.tablets[p].schema.reverse]
+              + [("_device_badj", "starring")]
+              + [("_device_values", p) for p in WRITE_VALUE_PREDS])
+    build = {"_device_adj": dc.device_adjacency,
+             "_device_radj": dc.device_radjacency,
+             "_device_badj": dc.device_bitadjacency,
+             "_device_values": dc.device_values}
+    if db.device_cache.bytes:
+        raise AssertionError("tiles resident before phase 25")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    tiles = {}
+    for attr, p in builds:
+        tiles[(attr, p)] = build[attr](db, db.tablets[p], ts)
+        if tiles[(attr, p)] is None:
+            raise AssertionError(f"no {attr} tile for {p}")
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_allocated(dev)
+    sizes = {k: tile_alloc(v) for k, v in tiles.items()}
+    tensor_bytes = sum(s[0] for s in sizes.values())
+    alloc_bytes = sum(s[1] for s in sizes.values())
+    if db.device_cache.bytes != tensor_bytes:
+        raise AssertionError(f"DeviceCacheLRU charges {db.device_cache.bytes}"
+                             f" device bytes, the tiles hold {tensor_bytes}")
+    if not tensor_bytes <= mem1 - mem0 <= alloc_bytes:
+        raise AssertionError(f"memory_allocated grew {mem1 - mem0} bytes "
+                             f"for tiles of {tensor_bytes} ({alloc_bytes} "
+                             f"in 512-byte blocks)")
+    for (attr, p), got in tiles.items():
+        tab_p = db.tablets[p]
+        if attr == "_device_values":
+            want = graph.build_values(tab_p.sort_key_pairs(""), device="cpu")
+        elif attr == "_device_badj":
+            want = bitgraph.build_bitadjacency(dc._edges32(tab_p.edges),
+                                               device="cpu")
+        else:
+            edges = tab_p.edges if attr == "_device_adj" else tab_p.reverse
+            want = graph.build_adjacency(dc._edges32(edges), device="cpu")
+        same_tile(f"{attr} of {p}", got, want)
+    log(f"tiles on the card: {len(tiles)} tiles ({len(uid_preds)} "
+        f"adjacencies, {sum(a == '_device_radj' for a, _ in builds)} reverse,"
+        f" 1 bitmap adjacency, {len(WRITE_VALUE_PREDS)} value tables) built "
+        f"in {tiles_s:.2f} s on the host, each equal to the CPU-built tile; "
+        f"DeviceCacheLRU device column {tensor_bytes} bytes = the tiles' "
+        f"tensor bytes; memory_allocated grew {mem1 - mem0} bytes (blocks of"
+        f" 512: {alloc_bytes}) | {card}")
+    order = list(tiles)
+    del tiles, got, want
+    total = db.device_cache.bytes
+    db.device_cache.budget = total // 2
+    before = set(db.device_cache._entries)
+    torch.cuda.synchronize()
+    mem_a = torch.cuda.memory_allocated(dev)
+    extra = dc.device_bitadjacency(db, db.tablets["genre"], ts)
+    extra_bytes, extra_alloc = tile_alloc(extra)
+    del extra
+    torch.cuda.synchronize()
+    mem_b = torch.cuda.memory_allocated(dev)
+    gone = before - set(db.device_cache._entries)
+    named = [(attr, p) for attr, p in order
+             if (id(db.tablets[p]), attr) in gone]
+    freed = mem_a + extra_alloc - mem_b
+    want_lo = sum(sizes[k][0] for k in named)
+    want_hi = sum(sizes[k][1] for k in named)
+    if not named or any(getattr(db.tablets[p], attr) is not None
+                        for attr, p in named) or \
+            named != order[:len(named)] or not want_lo <= freed <= want_hi:
+        raise AssertionError(f"eviction under budget {total // 2}: evicted "
+                             f"{named}, freed {freed} bytes, expected "
+                             f"{want_lo}..{want_hi} from the oldest tiles")
+    log(f"eviction under a budget of {total // 2} bytes (half the tiles): "
+        f"admitting genre's bitmap adjacency ({extra_bytes} bytes) evicted "
+        f"the {len(named)} least recently used tiles, their attributes "
+        f"cleared, freeing {freed} bytes on the card (their tensors "
+        f"{want_lo}) | {card}")
+    db.device_cache.budget = 2 << 30
+
+    # -- 26. reads on the card ---------------------------------------------
+    rng = np.random.default_rng(26)
+    for p in WRITE_BFS_PREDS:
+        srcs = np.fromiter(db.tablets[p].edges, np.int64)
+        sets = [rng.choice(srcs, BFS_SEEDS, replace=False)
+                for _ in range(BFS_SETS)]
+        db.prefer_device = True
+        dev_levels = [db.bfs(p, s, 3) for s in sets]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for s in sets:
+            db.bfs(p, s, 3)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms = start.elapsed_time(end) / BFS_SETS
+        db.prefer_device = False
+        t0 = time.perf_counter()
+        host_levels = [db.bfs(p, s, 3) for s in sets]
+        host_ms = (time.perf_counter() - t0) * 1e3 / BFS_SETS
+        db.prefer_device = True
+        for q, (a, b) in enumerate(zip(dev_levels, host_levels)):
+            if len(a) != 3 or any(not np.array_equal(x, y)
+                                  for x, y in zip(a, b)):
+                raise AssertionError(f"bfs on {p}, seed set {q}: card != "
+                                     f"the host overlay path")
+        badj = db.tablets[p]._device_badj
+        b_ms = bound_ms(3 * sum(b.in_nb.numel() * 4 for b in badj.buckets))
+        log(f"GraphDB.bfs on {p}, depth 3, {BFS_SETS} seed sets of "
+            f"{BFS_SEEDS}: card {dev_ms:.3f} ms a call (CUDA events around "
+            f"the {BFS_SETS} calls), host overlay path {host_ms:.3f} ms "
+            f"(host clock), level by "
+            f"level equal; bound {b_ms:.4f} ms (bytes: the bitmap "
+            f"adjacency's in-neighbour slots read once a level) | {card}")
+
+    def expand_check(label: str, read_ts: int) -> None:
+        tab_s = db.tablets["starring"]
+        adj = dc.device_adjacency(db, tab_s, read_ts)
+        srcs = np.asarray(sorted(tab_s.edges), np.uint64)
+        for n in (8, 1024, len(srcs)):
+            src = srcs[:: max(1, len(srcs) // n)][:n]
+            got = dc.expand_np(adj, src)
+            want = tab_s.expand_frontier(src, read_ts)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"expand_np of {n} sources ({label}) "
+                                     f"!= tab.expand_frontier")
+            ms = cuda_ms(lambda: dc.expand_np(adj, src), WRITE_REPS)
+            read = sum(len(tab_s.edges[int(u)]) for u in src)
+            log(f"expand_np {label}, {n} sources: {len(got)} uids = "
+                f"expand_frontier; {ms:.4f} ms a call (CUDA events, host "
+                f"copies in and out included), bound "
+                f"{bound_ms(8 * (2 * n + read + len(got))):.6f} ms (bytes: "
+                f"sources, their rows and the union once) | {card}")
+
+    expand_check("on the rolled-up graph", ts)
+    t0 = time.perf_counter()
+    pin = db.new_txn()          # pins the watermark: the tablets stay dirty
+    for txn in mixed_round(rng, db.tablets, MIXED_OPS):
+        db.mutate(set_nquads="\n".join(x[1:] for x in txn if x[0] == "+"),
+                  del_nquads="\n".join(x[1:] for x in txn if x[0] == "-"))
+    mixed_s = time.perf_counter() - t0
+    ts2 = db.coordinator.max_assigned()
+    for p in WRITE_BFS_PREDS:
+        if not db.tablets[p].dirty() or \
+                dc.device_adjacency(db, db.tablets[p], ts2) is not None:
+            raise AssertionError(f"{p}: a dirty tablet answered a tile")
+    db.discard(pin)
+    t0 = time.perf_counter()
+    db.rollup_all(0)
+    torch.cuda.synchronize()
+    rollup2_s = time.perf_counter() - t0
+    ts3 = db.coordinator.max_assigned()
+    for p in WRITE_BFS_PREDS:
+        tab_p = db.tablets[p]
+        got = dc.device_adjacency(db, tab_p, ts3)
+        same_tile(f"rebuilt adjacency of {p}", got, graph.build_adjacency(
+            dc._edges32(tab_p.edges), device="cpu"))
+        for u in list(tab_p.edges)[:: max(1, len(tab_p.edges) // 64)]:
+            want = tab_p.get_dst_uids(u, ts3)
+            row = dc.expand_np(got, np.asarray([u], np.uint64))
+            if not np.array_equal(row, want):
+                raise AssertionError(f"{p}: rebuilt tile row of {u:#x} != "
+                                     f"the host read")
+    expand_check("after the mixed round", ts3)
+    log(f"mixed round: {MIXED_OPS} sets and deletes in "
+        f"{-(-MIXED_OPS // WRITE_BATCH)} transactions in {mixed_s:.2f} s, "
+        f"device_adjacency None while dirty; rollup_all {rollup2_s:.2f} s; "
+        f"the rebuilt tiles equal the CPU-built and the host reads | {card}")
+    del db
+    torch.cuda.empty_cache()
+    return {"name": "score_int8_lists", "route": "cuda",
+            "source": "dgraph_tpu_torch/csrc/score.cu",
+            "replaces": "dgraph_tpu/ops/pallas_kernels.py:158",
+            "path": "GraphDB.rollup_all -> vecstore.build_ivf -> "
+                    "ivf._calibrate",
+            "launches": launches, "max_abs_err": err, "ms": int8_ms,
+            "plain_ms": plain_ms, "bound_ms": int8_bound,
+            "bound_by": int8_by, "library_ms": None}
+
+
 # -- the vector search plane (phases 8-12) ----------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2029,7 +2610,8 @@ def main() -> int:
     # vector plane's profiles, torch.profiler (torch 2.11, CUDA 12.8)
     # records no device activity for the rest of the process
     entries = []
-    for plane in (bfs_plane, graph_plane, setops_plane, vector_plane):
+    for plane in (bfs_plane, graph_plane, write_plane, setops_plane,
+                  vector_plane):
         t0 = time.perf_counter()
         got = plane(dev, card)
         entries += got if isinstance(got, list) else [got] if got else []

@@ -29,7 +29,14 @@ Ported so far:
   stemmer, geo, tokenizer, schema), `gql` (lexer, AST, parser, RDF and
   JSON mutations), `utils.keys`, `failpoint`, `metrics` and `tracing`
   (`profile_device` wraps `torch.profiler`), and
-  `cluster.coordinator`.
+  `cluster.coordinator`;
+- storage and the engine's write path: MVCC tablets, the WAL,
+  encryption at rest, snapshots, tablet statistics and the vector store
+  (`storage`), the wire codec (`wire`), change streams (`cdc`),
+  `utils.logger`, `reqlog` and `coststore`, the tile budget and the
+  device tiles (`engine.tile_cache`, `engine.device_cache`), and
+  `engine.db.GraphDB` without the query path; its rollup trains vector
+  indexes on the engine's device.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

@@ -684,3 +684,47 @@ def _gv_encode_py_small(a) -> bytes:
         out += payload
         i += 4
     return bytes(out)
+
+
+def gv_encode(uids: np.ndarray) -> bytes:
+    """Group-varint delta stream, byte-identical to the reference's
+    `gv_encode` (its native dgt_gv_encode and its numpy fallback write
+    the same bytes): scalar for short lists, below the numpy path's
+    fixed-overhead crossover, numpy otherwise."""
+    if len(uids) < 48:
+        return _gv_encode_py_small(uids)
+    return gv_encode_np(uids)
+
+
+def _gv_decode_py_small(buf: bytes) -> np.ndarray:
+    """Scalar decoder for SHORT streams, equal to gv_decode_np; the
+    numpy path pays a fixed array-op overhead per call, which dominated
+    restoring the many short posting lists of a snapshot."""
+    n = int.from_bytes(buf[:8], "little")
+    if n == 0:
+        return np.empty(0, np.uint64)
+    if len(buf) < 16:
+        raise ValueError("gv decode: truncated first uid")
+    out = [int.from_bytes(buf[8:16], "little")]
+    p = 16
+    while len(out) < n:
+        if p >= len(buf):
+            raise ValueError("gv decode: truncated tag")
+        tag = buf[p]
+        p += 1
+        for k in range(min(4, n - len(out))):
+            w = _GV_W_OF[(tag >> (2 * k)) & 3]
+            if p + w > len(buf):
+                raise ValueError("gv decode: truncated payload")
+            d = int.from_bytes(buf[p:p + w], "little")
+            p += w
+            out.append((out[-1] + d) & 0xFFFFFFFFFFFFFFFF)
+    return np.asarray(out, np.uint64)
+
+
+def gv_decode(buf: bytes) -> np.ndarray:
+    """Decoder for the `gv_encode` stream: scalar for short streams, as
+    the encoder, numpy otherwise."""
+    if len(buf) >= 8 and int.from_bytes(buf[:8], "little") < 48:
+        return _gv_decode_py_small(buf)
+    return gv_decode_np(buf)
