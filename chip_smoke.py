@@ -131,7 +131,8 @@ about 267k RDF, plus 262,144 x 128 float32 embeddings (`gen_corpus`,
 seed 0):
 
 22. load: `GraphDB(device="cuda:0", plan_cache_size=0, wal_path=...)`
-   takes the graph as RDF and the embeddings as JSON, in transactions of
+   takes the graph as RDF and the embeddings (`float32vector
+   @index(vector)`) as JSON, in transactions of
    1,000 N-Quads (the default batch of `dgraph live`), every commit
    framed into the WAL; RDF/s and vectors/s;
 23. rollup: `rollup_all(0)` with the launch counts set to 0 just before:
@@ -167,8 +168,45 @@ seed 0):
    the rebuilt tiles equal the CPU-built and the host reads. Each read
    is timed beside its bytes bound.
 
-The planes run in the order BFS, graph ops, write path, set algebra,
-vectors. Each
+The query plane, on the write plane's engine and state (plan cache
+and planner as each phase says; `planner="static"` wherever launches
+are counted):
+
+27. golden conformance on the card: the golden movie graph at scale 1
+   in `GraphDB(device="cuda:0", device_min_edges=1)` at the reference's
+   defaults (plan cache 128, adaptive planner); all 75 golden queries
+   equal tests/golden/expected under the golden suite's comparison, and
+   every device tier the suite reaches (expand both ways, range, order
+   pages and sorts, the count page, the fused page) moved;
+28. the same 75 queries at scale 10 on the write plane's engine, on a
+   CPU engine restored from its state and on its host path
+   (`prefer_device=False`): equal data; each query's warm median of
+   QUERY_REPS runs on the card and on the host path, by class of device
+   tier, and where an analyzed run's time goes;
+29. similar_to through `query()` on the embeddings (index from phase
+   23), one request per query of phase 23: the quantized tier launches
+   score_int8_lists once a request and nothing else, recall@10 >= 0.95
+   against exact_topk_blocked, equal to the plain score_int8_lists; the
+   exact device tier (`vec_quantized=False`) launches score_dot once a
+   request, equal to the plain score_dot, its scores within rounding of
+   float64 and its recall against knn.topk_host at least the two-stage
+   target; `@filter(similar_to)` over `has(embedding)` takes the exact
+   tier (score_dot once); p50 and p99 latency of each tier;
+30. pack algebra: LABEL_NODES fresh nodes with `label: string
+   @index(term)` (words w0-w3 with probabilities 1/2, 1/2, 1/4, 1/4),
+   loaded in transactions of 1,000 and rolled up; every word's pack
+   holds at least 8 BITMAP blocks on common keys; allofterms over 2, 3
+   and 4 words, AND_REPS times each: one bitmap_and launch a query, the
+   uids of a numpy oracle and of the plain bitmap_and; the kernel's time
+   beside the query's;
+31. `@recurse(depth: 3)` from 64 seeded films and `shortest` between 64
+   seeded pairs through `query()` with the device tiers forced
+   (device_min_edges=1): equal to the CPU engine and the host path,
+   query_device_expand_total and query_device_sssp_total moved, timed
+   beside the host path.
+
+The planes run in the order BFS, graph ops, write path and queries, set
+algebra, vectors. Each
 figure is printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
@@ -1383,23 +1421,31 @@ def mixed_round(rng, tablets, n_ops: int) -> list[str]:
     return out
 
 
-def write_plane(dev, card: str) -> dict:
+def write_plane(dev, card: str) -> list[dict]:
     """Phases 22-26: the engine's write path (`engine/db.GraphDB` over
     `storage/`, `cdc/`, `wire/`) on the card, its WAL and snapshot in a
-    scratch directory under build/. Returns the kernels line's entry of
-    score_int8_lists as rollup drives it."""
+    scratch directory under build/; then phases 27-31, the query path,
+    on the same engine and state. Returns the kernels line's entries of
+    score_int8_lists as rollup drives it, and of score_int8_lists,
+    score_dot and bitmap_and as queries drive them."""
     import shutil
 
     work = os.path.join(REPO, "build", "write_plane")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        return write_phases(dev, card, work)
+        t0 = time.perf_counter()
+        entry, state = write_phases(dev, card, work)
+        log(f"write path phases: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries = query_plane(dev, card, state)
+        log(f"query plane: {time.perf_counter() - t0:.1f} s")
+        return [entry] + entries
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def write_phases(dev, card: str, work: str) -> dict:
+def write_phases(dev, card: str, work: str) -> tuple[dict, dict]:
     import io
 
     from dgraph_tpu_torch import wire
@@ -1423,7 +1469,9 @@ def write_phases(dev, card: str, work: str) -> dict:
     gen_s = time.perf_counter() - t0
     db = GraphDB(device=dev, plan_cache_size=0, wal_path=wal,
                  vec_index_min_rows=WRITE_VECS // 2)
-    db.alter(schema + "embedding: float32vector .\n")
+    # @index(vector): similar_to at a query's root (phase 29) needs it;
+    # its tokenizer writes no index tokens
+    db.alter(schema + "embedding: float32vector @index(vector) .\n")
     t0 = time.perf_counter()
     for s in range(0, len(lines), WRITE_BATCH):
         db.mutate(set_nquads="\n".join(lines[s:s + WRITE_BATCH]))
@@ -1766,7 +1814,6 @@ def write_phases(dev, card: str, work: str) -> dict:
         f"{-(-MIXED_OPS // WRITE_BATCH)} transactions in {mixed_s:.2f} s, "
         f"device_adjacency None while dirty; rollup_all {rollup2_s:.2f} s; "
         f"the rebuilt tiles equal the CPU-built and the host reads | {card}")
-    del db
     torch.cuda.empty_cache()
     return {"name": "score_int8_lists", "route": "cuda",
             "source": "dgraph_tpu_torch/csrc/score.cu",
@@ -1775,7 +1822,576 @@ def write_phases(dev, card: str, work: str) -> dict:
                     "ivf._calibrate",
             "launches": launches, "max_abs_err": err, "ms": int8_ms,
             "plain_ms": plain_ms, "bound_ms": int8_bound,
-            "bound_by": int8_by, "library_ms": None}
+            "bound_by": int8_by, "library_ms": None}, \
+        {"db": db, "vecs": vecs, "queries": queries, "exact": exact}
+
+
+# -- the query plane (phases 27-31) -----------------------------------------
+
+QUERY_REPS = 5                     # warm runs of a golden query at scale 10
+SIMILAR_K = 10
+# phase 30: 2^19 fresh nodes from a block-aligned uid, so their 8 blocks
+# of 65,536 uids are whole (the device AND's floor); words w0-w3 each
+# with its own probability (PERF.md's setops-and-67M shape). No more:
+# the rollup's fold inserts uid by uid into a word's posting list, so
+# its time grows with the square of the nodes
+LABEL_NODES = 1 << 19
+LABEL_UID0 = 1 << 25
+LABEL_WORDS = (("w0", 0.5), ("w1", 0.5), ("w2", 0.25), ("w3", 0.25))
+AND_REPS = 64
+DEVICE_AND_KEYS = 8                # setops._DEVICE_MIN_BLOCKS
+RECURSE_ROOTS = 64
+SHORTEST_PAIRS = 64
+# the device tiers the golden suite reaches with device_min_edges=1
+GOLDEN_TIERS = ('query_device_expand_total{dir="fwd"}',
+                'query_device_expand_total{dir="rev"}',
+                "query_device_range_total", "query_device_sort_page_total",
+                "query_device_multisort_total",
+                "query_device_count_page_total", "query_fused_dispatch_total")
+
+
+def json_close(a, b) -> bool:
+    """The golden suite's comparison (tests/test_golden.py _json_close):
+    floats within a relative 1e-9, everything else exact; ints and
+    floats never cross-match."""
+    if isinstance(a, float) and isinstance(b, float):
+        if math.isnan(a) or math.isnan(b):
+            return math.isnan(a) and math.isnan(b)
+        return math.isclose(a, b, rel_tol=1e-9, abs_tol=1e-12)
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(json_close(v, b[k])
+                                            for k, v in a.items())
+    if isinstance(a, list):
+        return len(a) == len(b) and all(json_close(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def golden_queries() -> list[tuple[str, str, dict]]:
+    """(name, text, expected data) of tests/golden/queries/*.gql, read
+    by path."""
+    qdir = os.path.join(REPO, "tests", "golden", "queries")
+    edir = os.path.join(REPO, "tests", "golden", "expected")
+    out = []
+    for f in sorted(os.listdir(qdir)):
+        if f.endswith(".gql"):
+            with open(os.path.join(qdir, f)) as fh:
+                text = fh.read()
+            with open(os.path.join(edir, f[:-4] + ".json")) as fh:
+                out.append((f[:-4], text, json.load(fh)))
+    return out
+
+
+def launches_of(kernels) -> dict:
+    return {f.__name__: f.launches for f in (
+        kernels.bucket_or, kernels.bucket_or_level, kernels.score_dot,
+        kernels.score_int8, kernels.bitmap_and)}
+
+
+def only_launched(label: str, got: dict, name: str, n: int) -> None:
+    """`name` launched exactly n times and every other kernel 0."""
+    want = {k: (n if k == name else 0) for k in got}
+    if name not in got or got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host ms of `reps` calls of `fn` (which ends on the host:
+    a query returns host data)."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def vector_literal(row) -> str:
+    return "[" + ",".join("%.9g" % x for x in row.tolist()) + "]"
+
+
+def query_plane(dev, card: str, state: dict) -> list[dict]:
+    """Phases 27-31: the query path (`GraphDB.query` over `query/`) on
+    the card, on the write plane's engine and state. Returns the kernels
+    line's entries of score_int8_lists, score_dot and bitmap_and as
+    queries drive them."""
+    from dgraph_tpu_torch import wire
+    from dgraph_tpu_torch.bench import vectors as bv
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.ops import ivf, kernels, knn, setops
+    from dgraph_tpu_torch.storage import snapshot
+    from dgraph_tpu_torch.utils import metrics
+
+    # -- 27. golden conformance on the card --------------------------------
+    ds = golden_dataset()
+    schema1, lines1 = ds.generate(1)
+    gdb = GraphDB(device=dev, device_min_edges=1)
+    gdb.alter(schema_text=schema1)
+    gdb.mutate(set_nquads="\n".join(lines1))
+    golden = golden_queries()
+    reset_launches(kernels)
+    before = metrics.counters_snapshot()
+    t0 = time.perf_counter()
+    bad = [name for name, text, want in golden
+           if not json_close(gdb.query(text)["data"], want)]
+    golden_s = time.perf_counter() - t0
+    tiers = metrics.counters_delta(before)
+    if bad:
+        raise AssertionError(f"golden queries on the card drifted: {bad}")
+    missing = [c for c in GOLDEN_TIERS if tiers.get(c, 0) <= 0]
+    if missing:
+        raise AssertionError(f"golden queries on the card never reached "
+                             f"{missing}")
+    dev_counters = {k: v for k, v in sorted(tiers.items())
+                    if "device" in k or "fused" in k}
+    log(f"golden conformance on the card: {len(golden)} queries at scale 1 "
+        f"through GraphDB(device=cuda:0, device_min_edges=1), plan cache "
+        f"128, planner {gdb.planner}, each equal to tests/golden/expected "
+        f"(floats within 1e-9) in {golden_s:.2f} s; device counters "
+        f"{dev_counters}; kernel launches {launches_of(kernels)} | {card}")
+    del gdb
+
+    # -- 28. the golden queries at scale 10 --------------------------------
+    db = state["db"]
+    t0 = time.perf_counter()
+    cpu = snapshot.restore_state(
+        wire.loads(wire.dumps(snapshot.dump_state(db))),
+        GraphDB(device="cpu", plan_cache_size=0,
+                vec_index_min_rows=WRITE_VECS // 2), "cpu")
+    copy_s = time.perf_counter() - t0
+    rows = []
+    classes: dict[str, list] = {}
+    split = {"parse": 0.0, "execute": 0.0, "encode": 0.0}
+    stage_by_tier: dict[str, float] = {}
+    reset_launches(kernels)
+    for name, text, _ in golden:
+        db.prefer_device = True
+        before = metrics.counters_snapshot()
+        on_card = db.query(text)
+        moved = sorted(k.split("{")[0] for k, v in metrics.counters_delta(
+            before).items() if ("device" in k or "fused" in k) and v)
+        on_cpu = cpu.query(text)["data"]
+        db.prefer_device = False
+        host = db.query(text)["data"]
+        if not (on_card["data"] == on_cpu == host):
+            raise AssertionError(f"{name} at scale {GOLDEN_SCALE}: card, "
+                                 f"CPU and host path differ")
+        host_ms = median_ms(lambda: db.query(text), QUERY_REPS)
+        db.prefer_device = True
+        card_ms = median_ms(lambda: db.query(text), QUERY_REPS)
+        ex = db.query(text, explain="analyze")
+        lat = ex["extensions"]["latency"]
+        split["parse"] += lat["parsing_ns"] / 1e6
+        split["execute"] += lat["processing_ns"] / 1e6
+        split["encode"] += lat["encoding_ns"] / 1e6
+        for st in ex["extensions"]["explain"]["stages"]:
+            if st["stage"] not in ("block", "parse", "encode",
+                                   "plan.compile"):
+                key = f"{st['stage']}:{st.get('tier', '-')}"
+                stage_by_tier[key] = stage_by_tier.get(key, 0.0) + \
+                    st["durUs"] / 1e3
+        cls = "+".join(sorted(set(moved))) or "host only"
+        classes.setdefault(cls, []).append((card_ms, host_ms))
+        rows.append(f"{name} {card_ms:.3f}/{host_ms:.3f}")
+    log(f"golden queries at scale {GOLDEN_SCALE} on the write plane's "
+        f"engine (static planner, device_min_edges 1024): card, a CPU "
+        f"engine restored from its state ({copy_s:.1f} s) and the host path "
+        f"(prefer_device=False) give equal data for all {len(golden)}; "
+        f"kernel launches over the card's runs {launches_of(kernels)}; "
+        f"warm median of {QUERY_REPS} runs, ms card/host path (host "
+        f"clock): " + ", ".join(rows) + f" | {card}")
+    for cls, ms in sorted(classes.items()):
+        c = np.asarray(ms)
+        log(f"  class {cls}: {len(ms)} queries, card {c[:, 0].sum():.3f} "
+            f"ms, host path {c[:, 1].sum():.3f} ms (sums of medians) | "
+            f"{card}")
+    log(f"  one analyzed card run of each: parse {split['parse']:.1f} ms, "
+        f"execute {split['execute']:.1f} ms, encode {split['encode']:.1f} "
+        f"ms; stage spans by stage:tier (ms) " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(
+                stage_by_tier.items(), key=lambda kv: -kv[1])[:12])
+        + f" | {card}")
+
+    # -- 29. similar_to through query() ------------------------------------
+    tab = db.tablets["embedding"]
+    ix = tab.vector_ivf()
+    if ix is None or ix.device != dev:
+        raise AssertionError("the embedding's index from phase 23 is gone")
+    vecs, queries, exact = state["vecs"], state["queries"], state["exact"]
+    lits = [vector_literal(q) for q in queries]
+    root_q = ('{ q(func: similar_to(embedding, %d, "%s")) '
+              '{ uid s: val(similar_to_score) } }')
+    filt_q = ('{ q(func: has(embedding)) @filter(similar_to(embedding, '
+              '%d, "%s")) { uid } }')
+    last = {}
+
+    def recorded(fn, key):
+        def run(*args, **kw):
+            last[key] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    def similar(text_fmt, name, launched):
+        got, lat_ms = [], []
+        for i, lit in enumerate(lits):
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            out = db.query(text_fmt % (SIMILAR_K, lit))["data"]["q"]
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+            only_launched(f"{name} query {i}", launches_of(kernels),
+                          launched, 1)
+            got.append(out)
+        return got, lat_ms
+
+    def rows_of(got):
+        return np.asarray([[int(r["uid"], 16) - VEC_UID0 for r in out]
+                           for out in got], np.int64)
+
+    ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
+    knn.score_dot = recorded(kernels.score_dot, "dot")
+    try:
+        db.vec_quantized = True
+        quant, quant_ms = similar(root_q, "quantized tier", "score_int8")
+        db.vec_quantized = False
+        exact_dev, exact_ms = similar(root_q, "exact device tier",
+                                      "score_dot")
+        db.vec_quantized = True
+        filt, filt_ms = similar(filt_q, "filtered similar_to", "score_dot")
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+        knn.score_dot = kernels.score_dot
+    tol = (WRITE_DIM + 4) * 2.0 ** -24
+    q_rows = rows_of(quant)
+    rec = bv.recall(exact, q_rows)
+    if rec < 0.95:
+        raise AssertionError(f"quantized tier through query(): recall@"
+                             f"{SIMILAR_K} {rec} < 0.95")
+    # the same requests with the plain score_int8_lists
+    ivf.score_int8_lists = kernels.score_int8_lists_reference
+    try:
+        db.vec_quantized = True
+        quant_plain = [db.query(root_q % (SIMILAR_K, lit))["data"]["q"]
+                       for lit in lits]
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+    q_flips = same_topk("quantized tier vs plain", q_rows,
+                        rows_of(quant_plain), vecs, queries, VEC_METRIC, tol)
+    same_scores = all(a == b for a, b in zip(quant, quant_plain)
+                      if [r["uid"] for r in a] == [r["uid"] for r in b])
+    if not same_scores:
+        raise AssertionError("quantized tier: equal uids, other scores "
+                             "than with the plain score_int8_lists")
+    # the exact device tier: the same call with the plain score_dot, and
+    # the exact float64 top-k on the host
+    e_rows = rows_of(exact_dev)
+    knn.score_dot = kernels.score_dot_reference
+    try:
+        db.vec_quantized = False
+        dot_plain = [db.query(root_q % (SIMILAR_K, lit))["data"]["q"]
+                     for lit in lits]
+    finally:
+        knn.score_dot = kernels.score_dot
+        db.vec_quantized = True
+    e_flips = same_topk("exact device tier vs plain", e_rows,
+                        rows_of(dot_plain), vecs, queries, VEC_METRIC, tol)
+    host_idx, _ = knn.topk_host(vecs, queries, SIMILAR_K, VEC_METRIC)
+    e_rec = bv.recall(host_idx, e_rows)
+    e_same = int(sum(np.array_equal(a, b) for a, b in zip(e_rows, host_idx)))
+    worst = 0.0
+    for qi, out in enumerate(exact_dev):
+        s64 = knn.score_host(vecs[e_rows[qi]], queries[qi], VEC_METRIC)[0]
+        worst = max(worst, float(np.abs(np.asarray(
+            [r["s"] for r in out]) - s64).max()))
+    if worst > tol or e_rec < knn.RECALL_TARGET:
+        raise AssertionError(f"exact device tier: scores off float64 by "
+                             f"{worst} (> {tol}) or recall {e_rec}")
+    f_sets = [sorted(int(r["uid"], 16) for r in out) for out in filt]
+    if f_sets != [sorted(int(r["uid"], 16) for r in out)
+                  for out in exact_dev]:
+        raise AssertionError("filtered similar_to != the root exact tier")
+    tier = "two-stage" if knn.plan_two_stage(WRITE_VECS, SIMILAR_K) \
+        else "exact"
+    log(f"similar_to through query(), {len(lits)} requests a tier, k "
+        f"{SIMILAR_K}, on the {WRITE_VECS} x {WRITE_DIM} embeddings: "
+        f"quantized tier (index nprobe {ix.nprobe}) one score_int8_lists "
+        f"launch a request and no other kernel, recall@{SIMILAR_K} {rec} "
+        f"against exact_topk_blocked, equal to the plain score_int8_lists "
+        f"({q_flips} rounding flips, equal scores); exact device tier "
+        f"({tier} top-k) one score_dot launch a request, equal to the "
+        f"plain score_dot ({e_flips} flips), {e_same}/{len(lits)} rows "
+        f"equal to knn.topk_host's, recall {e_rec}, scores within "
+        f"{worst:.3g} of float64 (tolerance {tol:.3g}); @filter("
+        f"similar_to) over has(embedding) one score_dot launch a request, "
+        f"the root exact tier's uids | {card}")
+    for name, ms in (("quantized", quant_ms), ("exact device", exact_ms),
+                     ("filtered", filt_ms)):
+        log(f"  {name} tier, single request latency (host clock): p50 "
+            f"{pct(ms, 50):.3f} ms, p99 {pct(ms, 99):.3f} ms | {card}")
+    entries = []
+    (codes, qs, table, out), kw = last["int8"]
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
+        codes, qs, table, out, **kw), 20, flush)
+    plain_out = torch.empty_like(out)
+    int8_plain = cuda_ms(lambda: kernels.score_int8_lists_reference(
+        codes, qs, table, plain_out, **kw), 3)
+    err, ratio = lists_within_bound(codes, qs, table, out, plain_out, kw,
+                                    "score_int8_lists, a similar_to request")
+    int8_bound, int8_by = lists_bound_ms(codes, qs, table)
+    entries.append({
+        "name": "score_int8_lists", "route": "cuda",
+        "source": "dgraph_tpu_torch/csrc/score.cu",
+        "replaces": "dgraph_tpu/ops/pallas_kernels.py:158",
+        "path": "GraphDB.query -> similar_to quantized tier -> ivf.search",
+        "launches": len(lits), "max_abs_err": err, "ms": int8_ms,
+        "plain_ms": int8_plain, "bound_ms": int8_bound,
+        "bound_by": int8_by, "library_ms": None})
+    (corpus, qv), kw = last["dot"]
+    dot_ms = device_ms_cold(lambda: kernels.score_dot(corpus, qv), 20, flush)
+    dot_plain = device_ms_cold(
+        lambda: kernels.score_dot_reference(corpus, qv), 20, flush)
+    lib_ms = device_ms_cold(lambda: torch.matmul(qv, corpus.T), 20, flush)
+    derr, dratio = check_score(kernels.score_dot,
+                               kernels.score_dot_reference, corpus, qv,
+                               "score_dot, a similar_to request")
+    dot_bound, dot_by = score_bound_ms([(corpus, qv)])
+    entries.append({
+        "name": "score_dot", "route": "cuda",
+        "source": "dgraph_tpu_torch/csrc/score.cu",
+        "replaces": "dgraph_tpu/ops/pallas_kernels.py:123",
+        "path": "GraphDB.query -> similar_to exact device tier -> "
+                "knn.topk_device",
+        "launches": 2 * len(lits), "max_abs_err": derr, "ms": dot_ms,
+        "plain_ms": dot_plain, "bound_ms": dot_bound, "bound_by": dot_by,
+        "library_ms": lib_ms})
+    del flush
+    log(f"  a request's launch at its shapes: score_int8_lists "
+        f"({len(table)} entries, worst error/bound {ratio:.4g}) "
+        f"{int8_ms:.4f} ms, plain {int8_plain:.4f} ms, bound "
+        f"{int8_bound:.4f} ms ({int8_by}); score_dot ({qv.shape[0]} x "
+        f"{corpus.shape[0]} x {corpus.shape[1]}, worst error/bound "
+        f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f} ms, "
+        f"torch.matmul {lib_ms:.4f} ms, bound {dot_bound:.4f} ms ({dot_by})"
+        f" (device times from a flushed L2, CUDA events) | {card}")
+
+    # -- 30. pack algebra on the card --------------------------------------
+    entries.append(label_phase(db, dev, card, kernels, setops))
+
+    # -- 31. @recurse and shortest through query() -------------------------
+    recurse_and_shortest(db, cpu, card, kernels, metrics)
+    del cpu
+    return entries
+
+
+def label_phase(db, dev, card: str, kernels, setops) -> dict:
+    """Phase 30: allofterms over a dense term index, through query(),
+    with the device AND. Returns the kernels line's entry of
+    bitmap_and."""
+    from dgraph_tpu_torch.models.tokenizer import get_tokenizer
+    from dgraph_tpu_torch.ops import codec
+    from dgraph_tpu_torch.utils.keys import token_bytes
+
+    rng = np.random.default_rng(30)
+    has = {w: rng.random(LABEL_NODES) < p for w, p in LABEL_WORDS}
+    words = [w for w, _ in LABEL_WORDS]
+    labels = [" ".join(w for w in words if has[w][i])
+              for i in range(LABEL_NODES)]
+    db.alter("label: string @index(term) .")
+    t0 = time.perf_counter()
+    for s in range(0, LABEL_NODES, WRITE_BATCH):
+        db.mutate(set_nquads="\n".join(
+            f'<{LABEL_UID0 + i:#x}> <label> "{labels[i]}" .'
+            for i in range(s, min(LABEL_NODES, s + WRITE_BATCH))))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.rollup_all(0)
+    rollup_s = time.perf_counter() - t0
+    tab = db.tablets["label"]
+    tix = tab.token_index_packs(db.coordinator.max_assigned())
+    ident = get_tokenizer("term").ident
+    packs = {w: tix.packs.get(token_bytes(ident, w)) for w in words}
+    if any(p is None for p in packs.values()):
+        raise AssertionError("label: a word's posting list is not a pack")
+    common = set.intersection(*(set(p.keys.tolist())
+                                for p in packs.values()))
+    all_bitmap = [k for k in sorted(common) if all(
+        p.forms[int(np.searchsorted(p.keys, k))] == codec.FORM_BITMAP
+        for p in packs.values())]
+    if len(all_bitmap) < DEVICE_AND_KEYS:
+        raise AssertionError(f"label: {len(all_bitmap)} all-bitmap blocks "
+                             f"on common keys < {DEVICE_AND_KEYS}")
+    log(f"pack algebra, load: {LABEL_NODES} nodes with `label: string "
+        f"@index(term)`, words {dict(LABEL_WORDS)}, in "
+        f"{-(-LABEL_NODES // WRITE_BATCH)} transactions of {WRITE_BATCH} "
+        f"in {load_s:.2f} s ({LABEL_NODES / load_s:.0f} RDF/s); "
+        f"rollup_all(0) {rollup_s:.2f} s; every word's pack holds "
+        f"{len(all_bitmap)} BITMAP blocks on common keys | {card}")
+
+    # the words a query's bitmap_and launch ANDs, as bitmap_and_device
+    # stacks them (recorded there: the kernel's wrapper counts its
+    # launches through its own module name, so it stays unpatched)
+    last = {}
+    and_device = setops.bitmap_and_device
+
+    def recorded(mats, device=None):
+        last["mats"] = (mats, device)
+        return and_device(mats, device)
+
+    shapes = [words[:k] for k in (2, 3, 4)]
+    entry = None
+    real_and = kernels.bitmap_and
+    setops.bitmap_and_device = recorded
+    try:
+        for ws in shapes:
+            text = '{ q(func: allofterms(label, "%s")) { uid } }' % \
+                " ".join(ws)
+            mask = np.logical_and.reduce([has[w] for w in ws])
+            want = (LABEL_UID0 + np.flatnonzero(mask)).tolist()
+            wall = []
+            for r in range(AND_REPS):
+                reset_launches(kernels)
+                t0 = time.perf_counter()
+                out = db.query(text)["data"]["q"]
+                wall.append((time.perf_counter() - t0) * 1e3)
+                only_launched(f"allofterms {ws} run {r}",
+                              launches_of(kernels), "bitmap_and", 1)
+                got = [int(x["uid"], 16) for x in out]
+                if got != want:
+                    raise AssertionError(f"allofterms {ws}: {len(got)} "
+                                         f"uids != the oracle's {len(want)}")
+            kernels.bitmap_and = kernels.bitmap_and_reference
+            try:
+                plain = [int(x["uid"], 16)
+                         for x in db.query(text)["data"]["q"]]
+            finally:
+                kernels.bitmap_and = real_and
+            if plain != want:
+                raise AssertionError(f"allofterms {ws} with the plain "
+                                     f"bitmap_and != the oracle")
+            words_in, _ = last["mats"]
+            mats = torch.from_numpy(np.stack([np.ascontiguousarray(
+                m, np.uint64) for m in words_in]).view(np.int64)).to(dev)
+            k, b, w = mats.shape
+            flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+            k_ms = device_ms_cold(lambda: real_and(mats), 20, flush)
+            p_ms = device_ms_cold(
+                lambda: kernels.bitmap_and_reference(mats), 20, flush)
+            lib = device_ms_cold(
+                lambda: torch.bitwise_and(mats[0], mats[1]), 20, flush) \
+                if k == 2 else None
+            del flush
+            err = int((real_and(mats)
+                       != kernels.bitmap_and_reference(mats)).sum())
+            if err:
+                raise AssertionError("bitmap_and != plain version at a "
+                                     "query's shape")
+            bound = (k + 1) * b * w * 8 / HBM_BYTES_PER_S * 1e3
+            log(f"allofterms(label, \"{' '.join(ws)}\") x {AND_REPS}: "
+                f"{len(want)} uids = the numpy oracle = the plain "
+                f"bitmap_and's; one bitmap_and launch a query at (k {k}, "
+                f"B {b}, W {w}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                + (f", torch.bitwise_and {lib:.4f} ms" if lib else "")
+                + f", bound {bound:.4f} ms (bytes), device times from a "
+                f"flushed L2; query wall p50 {pct(wall, 50):.3f} ms, p99 "
+                f"{pct(wall, 99):.3f} ms (host clock) | {card}")
+            if k == 2:
+                entry = {"name": "bitmap_and", "route": "cuda",
+                         "source": "dgraph_tpu_torch/csrc/bitmap_and.cu",
+                         "replaces": "dgraph_tpu/ops/pallas_kernels.py:217",
+                         "path": "GraphDB.query -> allofterms -> "
+                                 "setops.intersect_mixed -> intersect_packs",
+                         "launches": len(shapes) * AND_REPS,
+                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": bound, "bound_by": "bytes",
+                         "library_ms": lib}
+    finally:
+        setops.bitmap_and_device = and_device
+        kernels.bitmap_and = real_and
+    return entry
+
+
+def recurse_and_shortest(db, cpu, card: str, kernels, metrics) -> None:
+    """Phase 31: @recurse and shortest through query() on the card (the
+    device tiers forced, device_min_edges=1, on both engines), each
+    equal to the CPU engine's data and timed beside the host path."""
+    rng = np.random.default_rng(31)
+    films = np.asarray(sorted(db.tablets["starring"].edges), np.int64)
+    directors = np.asarray(sorted(db.tablets["director.film"].edges),
+                           np.int64)
+    roots = rng.choice(films, RECURSE_ROOTS, replace=False)
+    # filtered children: a filtered recurse expands each level in one
+    # batch (the device expand); an unfiltered one reads per parent
+    rec_q = ("{ r(func: uid(%#x)) @recurse(depth: 3) { uid "
+             "~director.film @filter(has(director.film)) "
+             "director.film @filter(has(name)) "
+             "starring @filter(has(performance.actor)) } }")
+    genres = np.asarray(sorted(db.tablets["genre"].reverse), np.int64)
+    pairs = []
+    for i in range(SHORTEST_PAIRS):
+        if i % 2:
+            f = int(rng.choice(films))
+            row = db.tablets["genre"].edges.get(f)
+            g = int(row[0]) if i % 4 == 1 and row is not None and len(row) \
+                else int(rng.choice(genres))
+            pairs.append(("genre", f, g))
+        else:
+            d = int(rng.choice(directors))
+            row = db.tablets["director.film"].edges[d]
+            f = int(row[-1]) if i % 4 == 0 else int(rng.choice(films))
+            pairs.append(("director.film", d, f))
+    sp_q = ("{ p as shortest(from: %#x, to: %#x) { %s } "
+            "n(func: uid(p)) { uid } }")
+    cases = {"recurse": [rec_q % int(r) for r in roots],
+             "shortest": [sp_q % (a, b, p) for p, a, b in pairs]}
+    counters = {"recurse": "query_device_expand_total",
+                "shortest": "query_device_sssp_total"}
+    db.device_min_edges = cpu.device_min_edges = 1
+    try:
+        for kind, texts in cases.items():
+            reset_launches(kernels)
+            before = metrics.counters_snapshot()
+            card_ms, host_ms, found = [], [], 0
+            for text in texts:
+                db.prefer_device = True
+                t0 = time.perf_counter()
+                got = db.query(text)["data"]
+                card_ms.append((time.perf_counter() - t0) * 1e3)
+                if got != cpu.query(text)["data"]:
+                    raise AssertionError(f"{kind} on the card != the CPU "
+                                         f"engine: {text}")
+                found += bool(got.get("_path_") or got.get("r"))
+                db.prefer_device = False
+                t0 = time.perf_counter()
+                host = db.query(text)["data"]
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                if host != got:
+                    raise AssertionError(f"{kind}: host path != card: "
+                                         f"{text}")
+            db.prefer_device = True
+            moved = sum(v for k, v in metrics.counters_delta(before).items()
+                        if k.startswith(counters[kind]))
+            if moved <= 0:
+                raise AssertionError(f"{kind} never moved {counters[kind]}")
+            ex = db.query(texts[0], explain="analyze")["extensions"]
+            tiers = {k: v for k, v in ex["explain"]["counters"].items()
+                     if "device" in k}
+            log(f"{kind} through query(), {len(texts)} requests "
+                f"({found} non-empty): equal to the CPU engine and the host "
+                f"path; {counters[kind]} +{moved:g}; kernel launches "
+                f"{launches_of(kernels)}; card p50 {pct(card_ms, 50):.3f} "
+                f"ms p99 {pct(card_ms, 99):.3f} ms, host path p50 "
+                f"{pct(host_ms, 50):.3f} ms p99 {pct(host_ms, 99):.3f} ms "
+                f"(host clock, first runs included); EXPLAIN analyze of "
+                f"the first, its device tier counters: {tiers} | {card}")
+    finally:
+        db.device_min_edges = cpu.device_min_edges = 1024
+        db.prefer_device = True
 
 
 # -- the vector search plane (phases 8-12) ----------------------------------

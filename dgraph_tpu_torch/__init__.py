@@ -35,8 +35,18 @@ Ported so far:
   (`storage`), the wire codec (`wire`), change streams (`cdc`),
   `utils.logger`, `reqlog` and `coststore`, the tile budget and the
   device tiles (`engine.tile_cache`, `engine.device_cache`), and
-  `engine.db.GraphDB` without the query path; its rollup trains vector
-  indexes on the engine's device.
+  `engine.db.GraphDB`; its rollup trains vector indexes on the engine's
+  device;
+- the query path: the executor (`query.executor`), compiled plans and
+  the plan cache (`query.plan`), the adaptive planner
+  (`query.planner`), whole-plan fusion (`query.fusion`), EXPLAIN
+  (`query.explain`), columnar value variables (`query.colvar`), the
+  regexp trigram compiler (`query.retrigram`), typed cluster errors
+  and hash-range shards (`cluster.errors`, `cluster.shard`), and
+  `GraphDB.query`, `query_json`, upserts and @if conditions. Every
+  device tier of a query runs on the engine's device: the pack
+  algebra's AND through `bitmap_and`, similar_to through `score_dot`
+  and `score_int8_lists`, the rest plain PyTorch.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

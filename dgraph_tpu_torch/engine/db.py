@@ -16,29 +16,27 @@ Mutation semantics ported from behavior (not structure):
   - an overwrite of a single-valued indexed predicate emits index deletes
     for the old value's tokens (posting/index.go:83 addIndexMutations)
 
-Port of `dgraph_tpu/engine/db.py`: the write path. Schema (`alter`),
-transactions and `mutate` (RDF, JSON and `mutations=`), commit, discard,
-`apply_record` and WAL replay, `rollup_all` (which trains the vector
-indexes on the engine's device), `bfs`, the tablet exports, `state` and
-`debug_stats` behave as the reference's. The engine runs on `device`
-(None: the card); its tablets, tiles and vector indexes live there.
+Port of `dgraph_tpu/engine/db.py`. Schema (`alter`), transactions and
+`mutate` (RDF, JSON, `mutations=`, upsert blocks and @if conditions),
+commit, discard, `apply_record` and WAL replay, `rollup_all` (which
+trains the vector indexes on the engine's device), `query` and
+`query_json` (through the plan cache and the adaptive planner by
+default), `bfs`, the tablet exports (sharded ones included), `state`
+and `debug_stats` behave as the reference's. The engine runs on
+`device` (None: the card); its tablets, tiles and vector indexes live
+there, and every device tier of the query path runs there.
 
 Later slices lift the seams this one leaves; each raises
 NotImplementedError naming its slice (ROADMAP Queue 1):
-  item 7, the query path: `query`, `query_json`, upsert and conditional
-    mutations (`query=`, `cond=`), `plan_cache_size > 0`,
-    `planner="adaptive"`, sharded tablet exports and the `split_prune`
-    record (cluster/shard);
   item 8, multi-device: `mesh`;
   item 9, cold storage: `store_dir` (and `checkpoint`),
     `result_cache_entries`, `prefetch_workers`.
-With `plan_cache_size=0`, `planner="auto"` resolves to "static", as in
-the reference.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json as _json
 import time
 from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Any, Optional
@@ -50,6 +48,7 @@ from dgraph_tpu_torch.backend import resolve_device
 from dgraph_tpu_torch.cluster.coordinator import (  # noqa: F401 (API)
     Coordinator, StaleSnapshot, TxnAborted,
 )
+from dgraph_tpu_torch.gql import parse as gql_parse
 from dgraph_tpu_torch.gql.nquad import NQuad, parse_json_mutation, parse_rdf
 from dgraph_tpu_torch.models.schema import PredicateSchema, SchemaState
 from dgraph_tpu_torch.models.types import TypeID, Val, convert
@@ -67,7 +66,11 @@ def _later_slice(what: str, item: int, name: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP Queue 1 item {item}, {name})")
 
 
-_QUERY_PATH = (7, "the query path")
+def _skel_of(plan) -> str:
+    """A plan's 16-hex skeleton hash ("" on the interpreted path) —
+    the shared join key across the coststore, the request log and
+    EXPLAIN output."""
+    return plan.skeleton_hex if plan is not None else ""
 
 
 def _fp(*parts) -> int:
@@ -105,6 +108,36 @@ class Mutation:
     cond: str = ""
 
 
+@dataclass
+class Latency:
+    """Per-phase latency returned with every response
+    (ref api.Latency, edgraph/server.go:717)."""
+
+    parsing_ns: int = 0
+    processing_ns: int = 0
+    encoding_ns: int = 0
+    assign_ts_ns: int = 0
+
+    def as_dict(self):
+        return {"parsing_ns": self.parsing_ns,
+                "processing_ns": self.processing_ns,
+                "encoding_ns": self.encoding_ns,
+                "assign_timestamp_ns": self.assign_ts_ns}
+
+    def total_ns(self) -> int:
+        return (self.parsing_ns + self.processing_ns
+                + self.encoding_ns + self.assign_ts_ns)
+
+    def server_latency(self):
+        """Dgraph v1.1 `extensions.server_latency` response schema
+        (ref protos/api Latency as serialized by edgraph/server.go:717:
+        parsing/processing/encoding plus the total)."""
+        return {"parsing_ns": self.parsing_ns,
+                "processing_ns": self.processing_ns,
+                "encoding_ns": self.encoding_ns,
+                "total_ns": self.total_ns()}
+
+
 class GraphDB:
     # dglint: guarded-by=*:external (the engine data plane carries no
     # internal locks by design: mutations run on the single raft-apply
@@ -140,10 +173,8 @@ class GraphDB:
                  device=None):
         from dgraph_tpu_torch.engine.tile_cache import DeviceCacheLRU
         from dgraph_tpu_torch.ops.codec import DecodeScratch
+        from dgraph_tpu_torch.query.plan import PlanCache
 
-        if plan_cache_size:
-            raise _later_slice("the plan cache (plan_cache_size > 0)",
-                               *_QUERY_PATH)
         if mesh is not None:
             raise _later_slice("a device mesh", 8, "multi-device")
         for opt, used in (("store_dir", store_dir is not None),
@@ -154,10 +185,13 @@ class GraphDB:
         # where tablets build their tiles and vector indexes
         self.device = resolve_device(device)
         self.schema = SchemaState()
-        # bumped by every schema change (the plan cache's key component
-        # once the query path is ported)
+        # compiled plan cache (query/plan.py): parse + skeleton-keyed
+        # executables. schema_epoch is a plan-cache key component —
+        # every schema change bumps it, making stale plans unreachable.
+        # 0 disables (every request takes the interpreted path).
         self.schema_epoch = 0
-        self.plan_cache = None
+        self.plan_cache = PlanCache(plan_cache_size) \
+            if plan_cache_size else None
         self.coordinator = Coordinator()
         self.tablets: dict[str, Tablet] = {}
         self.prefer_device = prefer_device
@@ -186,18 +220,27 @@ class GraphDB:
             raise ValueError(
                 f"planner must be 'auto', 'adaptive' or 'static', "
                 f"got {planner!r}")
-        if planner == "adaptive":
-            raise _later_slice("the adaptive planner", *_QUERY_PATH)
-        self.planner = "static"
-        self.planner_impl: Any = None
+        if planner == "adaptive" and self.plan_cache is None:
+            raise ValueError(
+                "planner='adaptive' needs the plan cache "
+                "(plan_cache_size > 0): decisions are cached on "
+                "compiled plans")
+        if planner in ("auto", "adaptive") \
+                and self.plan_cache is not None:
+            from dgraph_tpu_torch.query.planner import AdaptivePlanner
+            self.planner = "adaptive"
+            self.planner_impl: Any = AdaptivePlanner(self)
+        else:
+            self.planner = "static"
+            self.planner_impl = None
         # budgeted cold-tier exploration (query/planner.py
         # _maybe_explore): False pins decisions to evidence + the
         # static ladder only — deterministic tier choice for parity
         # suites and per-shape benchmark tables
         self.planner_explore = planner_explore
         # whole-plan device fusion (query/fusion.py): an eligible
-        # block's filter+order+page chain runs as ONE jitted
-        # executable per (skeleton, shape-bucket, mesh). False pins
+        # block's filter+order+page chain runs as ONE executable per
+        # (skeleton, shape-bucket, mesh). False pins
         # every block to the staged per-stage pipeline — the fusion
         # parity suite's oracle and the operator escape hatch;
         # fused_min_rows keeps tiny roots (where one dispatch costs
@@ -381,17 +424,13 @@ class GraphDB:
         (ref edgraph/server.go:220 doMutate, :327 buildUpsertQuery,
         :503-511 updateUIDInMutations/updateValInMutations).
 
-        Returns {"uids": {...}} like api.Response. Upsert blocks and
-        @if conditions run a query, which waits for the query path."""
+        Returns {"uids": {...}, "queries": {...}} like api.Response."""
         legacy = set_nquads or del_nquads or set_json is not None \
             or delete_json is not None
         if cond and mutations and not legacy:
             raise ValueError(
                 "cond applies to the set_/del_ args; with mutations=[...] "
                 "put the cond inside each Mutation")
-        if query or cond or any(m.cond for m in mutations or ()):
-            raise _later_slice("an upsert or conditional mutation",
-                               *_QUERY_PATH)
         own = txn is None
         if txn is None:
             txn = self.new_txn()
@@ -403,9 +442,21 @@ class GraphDB:
                                  delete_json=delete_json, cond=cond))
 
         try:
+            queries_json: dict = {}
+            ex = None
+            if query:
+                from dgraph_tpu_torch.query.executor import Executor
+
+                parsed = gql_parse(query, variables)
+                ex = Executor(self, txn.start_ts, ctx=ctx)
+                queries_json = ex.run(parsed)
+
+            applied = False
             for mut in muts:
                 if ctx is not None:
                     ctx.check("mutate")
+                if not self._cond_holds(mut.cond, ex):
+                    continue
                 nqs: list[tuple[NQuad, bool]] = []
                 if mut.set_nquads:
                     nqs += [(n, False) for n in parse_rdf(mut.set_nquads)]
@@ -417,7 +468,10 @@ class GraphDB:
                 if mut.delete_json is not None:
                     nqs += [(n, True) for n in
                             parse_json_mutation(mut.delete_json, delete=True)]
+                if ex is not None:
+                    nqs = self._substitute_vars(nqs, ex)
                 self._stage(txn, nqs)
+                applied = True
             if ctx is not None:
                 # last pre-commit boundary: an expired/cancelled
                 # request must not commit work its client abandoned
@@ -427,9 +481,86 @@ class GraphDB:
                 self.discard(txn)  # don't leak the ts in the oracle
             raise
         if commit_now or own:
-            self.commit(txn)
-        return {"uids": {k[2:]: hex(v) for k, v in txn.uid_map.items()
-                         if k.startswith("_:")}}
+            if applied or not query:
+                self.commit(txn)
+            else:
+                self.discard(txn)  # all conds failed: nothing to commit
+        out = {"uids": {k[2:]: hex(v) for k, v in txn.uid_map.items()
+                        if k.startswith("_:")}}
+        if query:
+            out["queries"] = queries_json
+        return out
+
+    def _cond_holds(self, cond: str, ex) -> bool:
+        """Evaluate an @if condition over the upsert query's variables.
+        The reference restricts conds to boolean combinations of
+        eq/le/lt/ge/gt over len(v) (edgraph/server.go checkIfDeletingAcl →
+        gql cond validation)."""
+        from dgraph_tpu_torch.gql.parser import parse_cond
+
+        ft = parse_cond(cond)
+        if ft is None:
+            return True
+        if ex is None:
+            raise ValueError("@if condition requires an upsert query block")
+        return self._eval_cond_tree(ft, ex)
+
+    def _eval_cond_tree(self, ft, ex) -> bool:
+        if ft.op == "and":
+            return all(self._eval_cond_tree(c, ex) for c in ft.children)
+        if ft.op == "or":
+            return any(self._eval_cond_tree(c, ex) for c in ft.children)
+        if ft.op == "not":
+            return not self._eval_cond_tree(ft.children[0], ex)
+        fn = ft.func
+        if fn is None or not fn.is_len_var or not fn.needs_var:
+            raise ValueError(
+                "@if supports eq/le/lt/ge/gt over len(v) expressions")
+        name = fn.needs_var[0].name
+        if name in ex.uid_vars:
+            n = len(ex.uid_vars[name])
+        elif name in ex.value_vars:
+            n = len(ex.value_vars[name])
+        else:
+            n = 0
+        want = int(fn.args[0].value)
+        return {"eq": n == want, "le": n <= want, "lt": n < want,
+                "ge": n >= want, "gt": n > want}[fn.name]
+
+    @staticmethod
+    def _uid_ref_var(ref: str) -> Optional[str]:
+        if ref.startswith("uid(") and ref.endswith(")"):
+            return ref[4:-1]
+        return None
+
+    def _substitute_vars(self, nqs: list[tuple[NQuad, bool]], ex
+                         ) -> list[tuple[NQuad, bool]]:
+        """Expand uid(v)/val(v) references against the upsert query's
+        variables. uid(v) fans out (cross product when both subject and
+        object are vars); an empty var drops the nquad; val(v) resolves
+        per concrete subject uid (ref edgraph/server.go:503
+        updateValInMutations, :511 updateUIDInMutations)."""
+        out: list[tuple[NQuad, bool]] = []
+        for nq, is_del in nqs:
+            svar = self._uid_ref_var(nq.subject)
+            subjects = [hex(int(u)) for u in ex.uid_vars.get(svar, [])] \
+                if svar else [nq.subject]
+            ovar = self._uid_ref_var(nq.object_id) if nq.object_id else None
+            objects = [hex(int(u)) for u in ex.uid_vars.get(ovar, [])] \
+                if ovar else [nq.object_id]
+            for s in subjects:
+                for o in objects:
+                    sub = _dc_replace(nq, subject=s, object_id=o)
+                    if nq.val_var:
+                        vmap = ex.value_vars.get(nq.val_var, {})
+                        v = vmap.get(int(s, 0)) if not s.startswith("_:") \
+                            else None
+                        if v is None:
+                            continue
+                        sub.object_value = v
+                        sub.val_var = ""
+                    out.append((sub, is_del))
+        return out
 
     def _resolve_uid(self, txn: Txn, ref: str) -> int:
         if ref.startswith("_:"):
@@ -778,8 +909,18 @@ class GraphDB:
             # source-side cleanup after a SPLIT flip: keep only the
             # rows outside the moved hash range (pure function of
             # replicated tablet state — every member prunes identically)
-            # a hash-range split needs cluster/shard
-            raise _later_slice("the split_prune record", *_QUERY_PATH)
+            _, pred, nshards, shard = rec
+            tab = self.tablets.get(pred)
+            if tab is None:
+                return 0
+            from dgraph_tpu_torch.cluster.shard import shard_view
+            pruned = shard_view(tab, int(nshards), int(shard),
+                                invert=True)
+            pruned.touches = tab.touches
+            self.device_cache.drop_tablet(tab)
+            self.tablets[pred] = pruned
+            self.split_partial.add(pred)
+            return 0
         if kind == "commit":
             _, commit_ts, staged, schemas = rec
             # restore on-the-fly schema before creating tablets
@@ -872,13 +1013,298 @@ class GraphDB:
     # Query (ref edgraph/server.go:634 Query -> query.Process)
     # ------------------------------------------------------------------
 
-    def query(self, q: str, variables: dict | None = None, *args, **kw
-              ) -> dict:
-        raise _later_slice("query()", *_QUERY_PATH)
+    def _result_cache_probe(self, q, variables, txn, best_effort,
+                            read_ts, explain, mode):
+        """(cache key, predicate footprint) when this request may
+        serve from / fill the result cache, else (None, None).
 
-    def query_json(self, q: str, variables: dict | None = None, *args,
-                   **kw) -> str:
-        raise _later_slice("query_json()", *_QUERY_PATH)
+        The result cache (`result_cache_entries`) is cold storage's
+        (ROADMAP Queue 1 item 9) and raises at construction, so every
+        request of this port bypasses it here."""
+        if self.result_cache is None:
+            return None, None
+        raise _later_slice("the result cache", 9, "cold storage and ingest")
+
+    def _result_cache_gen(self, key):
+        """Fill-race guard generation for a ("be",) keyed entry: a
+        result computed BEFORE a concurrent commit must not be stored
+        AFTER that commit's invalidation swept the cache — put()
+        discards the fill when the generation moved. ("ts", T) entries
+        are immutable by MVCC; no guard needed."""
+        return self.result_cache.generation \
+            if key is not None and key[4][0] == "be" else None
+
+    def query(self, q: str, variables: dict | None = None,
+              txn: Optional[Txn] = None, best_effort: bool = True,
+              read_ts: Optional[int] = None, ctx=None,
+              explain: Optional[str] = None) -> dict:
+        """`read_ts` pins the MVCC snapshot to an externally issued
+        timestamp (a zero-global ts for cross-group reads); otherwise
+        best_effort reads at max_assigned and strict reads allocate.
+        `ctx` (utils/reqctx.RequestContext) carries the request's
+        deadline/cancellation into the executor AND its trace ids:
+        spans opened anywhere below join the request's trace.
+        `explain` ("plan" | "analyze", or the in-query `@explain`
+        flag) attaches the compiled plan tree — with stats-estimated
+        rows, and for analyze the observed rows/durations/tier
+        counters — under `extensions.explain`. The DATA payload is
+        byte-identical with or without it: explain annotates a normal
+        execution, it never changes one."""
+        import copy as _copy
+        t_in = time.perf_counter_ns()
+        rc_key, rc_fp = self._result_cache_probe(
+            q, variables, txn, best_effort, read_ts, explain, "py")
+        if rc_key is not None:
+            hit = self.result_cache.get(rc_key)
+            if hit is not None:
+                self._result_cache_hit_metrics(
+                    ctx, rc_key[1], time.perf_counter_ns() - t_in)
+                return _copy.deepcopy(hit)  # callers may mutate
+        rc_gen = self._result_cache_gen(rc_key)
+        with bind_request(ctx), _span("query") as sp:
+            ex, done, lat, read_ts, expinfo = self._query_run(
+                q, variables, txn, best_effort, read_ts, ctx, sp,
+                explain=explain)
+            try:
+                with coststore.bind_plan(_skel_of(ex.plan)), \
+                        _span("encode") as esp:
+                    t0 = time.perf_counter_ns()
+                    data = ex.emit(done)
+                    if ex.parsed is not None \
+                            and ex.parsed.schema_request is not None:
+                        data["schema"] = self._schema_rows(
+                            ex.parsed.schema_request)
+                    lat.encoding_ns = time.perf_counter_ns() - t0
+                    esp["encode_us"] = lat.encoding_ns // 1000
+            finally:
+                self.coordinator.unpin_read(read_ts)
+            expl = None
+            if expinfo is not None:
+                from dgraph_tpu_torch.query.explain import build_explain
+                expl = build_explain(self, ex, done, expinfo)
+        self._query_metrics(lat, ctx, ex.plan)
+        ext = {"latency": lat.as_dict(),
+               "server_latency": lat.server_latency(),
+               "txn": {"start_ts": read_ts}}
+        if expl is not None:
+            ext["explain"] = expl
+        out = {"data": data, "extensions": ext}
+        if rc_key is not None:
+            # stored verbatim (deep-copied): a later hit serves the
+            # exact response this execution produced
+            self.result_cache.put(rc_key, rc_fp, _copy.deepcopy(out),
+                                  gen=rc_gen)
+        return out
+
+    def _schema_rows(self, req: dict) -> list[dict]:
+        """`schema {}` introspection rows, the reference's response
+        shape: one object per predicate with falsy fields omitted and
+        an optional field selection (ref query schema nodes)."""
+        from dgraph_tpu_torch.models.types import type_name
+        want = set(req.get("preds") or ())
+        fields = set(req.get("fields") or ())
+        rows = []
+        for pred in sorted(self.schema.predicates()):
+            if want and pred not in want:
+                continue
+            ps = self.schema.get_or_default(pred)
+            row: dict = {"predicate": pred,
+                         "type": type_name(ps.value_type)}
+            if ps.indexed:
+                row["index"] = True
+                row["tokenizer"] = list(ps.tokenizers)
+            if ps.reverse:
+                row["reverse"] = True
+            if ps.count:
+                row["count"] = True
+            if ps.list_:
+                row["list"] = True
+            if ps.upsert:
+                row["upsert"] = True
+            if ps.lang:
+                row["lang"] = True
+            if fields:
+                row = {k: v for k, v in row.items()
+                       if k == "predicate" or k in fields}
+            rows.append(row)
+        return rows
+
+    def _query_run(self, q, variables, txn, best_effort, read_ts,
+                   ctx=None, sp=None, explain=None):
+        """Shared query front half: parse, read-ts resolution,
+        execution — everything up to (but excluding) emission, which
+        query() and query_json() do differently. `sp` is the
+        enclosing "query" span's attr dict (phase timings land there
+        so the trace view shows the breakdown inline). Returns an
+        extra `expinfo` dict (None unless this request asked for
+        EXPLAIN via the `explain` kwarg or the parsed `@explain`
+        flag): the trace id, the pre-execution counter snapshot and
+        the plan-cache outcome query/explain.py assembles from."""
+        from dgraph_tpu_torch.query.executor import Executor
+        from dgraph_tpu_torch.utils import tracing as _tracing
+
+        lat = Latency()
+        plan = None
+        cache_info: dict = {}
+        with _span("parse"):
+            t0 = time.perf_counter_ns()
+            if self.plan_cache is not None:
+                # cached parse + compiled plan: a warm same-skeleton
+                # request binds its literals and skips the parser and
+                # the per-stage re-derivation entirely
+                parsed, plan = self.plan_cache.lookup(
+                    self, q, variables, info=cache_info)
+            else:
+                parsed = gql_parse(q, variables)
+            lat.parsing_ns = time.perf_counter_ns() - t0
+        if ctx is not None:
+            ctx.check("parse")
+
+        if explain not in (None, "plan", "analyze"):
+            raise ValueError(
+                f"explain must be 'plan' or 'analyze', got {explain!r}")
+        # transport flag and in-query directive combine by taking the
+        # STRONGER mode: ?explain=true must never silently downgrade a
+        # body that asked for @explain(analyze: true)
+        doc_mode = getattr(parsed, "explain", "") or None
+        rank = {None: 0, "plan": 1, "analyze": 2}
+        mode = explain if rank[explain] >= rank[doc_mode] else doc_mode
+        expinfo = None
+        if mode is not None:
+            cur = _tracing.current()
+            expinfo = {"mode": mode,
+                       "trace_id": cur[0] if cur is not None else "",
+                       "counters_before": metrics.counters_snapshot(),
+                       "cache": dict(cache_info)}
+
+        t0 = time.perf_counter_ns()
+        if read_ts is not None:
+            pass  # pinned snapshot
+        elif txn is not None:
+            read_ts = txn.start_ts
+        elif best_effort:
+            read_ts = self.coordinator.max_assigned()
+        else:
+            read_ts = self.coordinator.next_ts()
+        lat.assign_ts_ns = time.perf_counter_ns() - t0
+
+        # hold the rollup watermark for the query's duration
+        # (execution AND emission — both read tablets at read_ts);
+        # callers unpin in their finally blocks
+        self.coordinator.pin_read(read_ts)
+        # the coststore attributes every stage span inside to this
+        # request's plan skeleton ("" on the interpreted path)
+        with coststore.bind_plan(_skel_of(plan)), _span("execute"):
+            t0 = time.perf_counter_ns()
+            try:
+                ex = Executor(self, read_ts, ctx=ctx, plan=plan)
+                done = ex.execute(parsed)
+            except BaseException:
+                self.coordinator.unpin_read(read_ts)
+                raise
+            lat.processing_ns = time.perf_counter_ns() - t0
+        if sp is not None:
+            sp["read_ts"] = read_ts
+            sp["blocks"] = len(parsed.queries)
+            sp["parse_us"] = lat.parsing_ns // 1000
+            sp["process_us"] = lat.processing_ns // 1000
+        return ex, done, lat, read_ts, expinfo
+
+    def _query_metrics(self, lat: Latency, ctx=None, plan=None):
+        metrics.inc_counter("dgraph_num_queries_total")
+        metrics.observe("dgraph_query_latency_ms",
+                        (lat.parsing_ns + lat.processing_ns
+                         + lat.encoding_ns) / 1e6)
+        sl = lat.server_latency()
+        reqlog.record("query",
+                      trace_id=ctx.trace_id if ctx is not None else "",
+                      latency_ms=sl["total_ns"] / 1e6, breakdown=sl,
+                      plan_key=_skel_of(plan),
+                      tenant=getattr(ctx, "tenant", ""))
+
+    def _result_cache_hit_metrics(self, ctx, skel: str,
+                                  total_ns: int):
+        """A cache hit is still a served query: it must land in the
+        query counters and the request log (tenant included), or the
+        hottest queries vanish from observability exactly when the
+        cache starts working."""
+        metrics.inc_counter("dgraph_num_queries_total")
+        metrics.observe("dgraph_query_latency_ms", total_ns / 1e6)
+        sl = {"parsing_ns": 0, "processing_ns": 0,
+              "encoding_ns": 0, "total_ns": int(total_ns)}
+        reqlog.record("query",
+                      trace_id=ctx.trace_id if ctx is not None else "",
+                      latency_ms=total_ns / 1e6, breakdown=sl,
+                      plan_key=skel,
+                      tenant=getattr(ctx, "tenant", ""))
+
+    def query_json(self, q: str, variables: dict | None = None,
+                   txn: Optional[Txn] = None, best_effort: bool = True,
+                   read_ts: Optional[int] = None, ctx=None,
+                   explain: Optional[str] = None) -> str:
+        """query() with the serialized-response fast path: the full
+        {"data": ..., "extensions": ...} body as ONE JSON string, with
+        flat uid+scalar blocks encoded by the native columnar row
+        serializer instead of per-uid dict building + json.dumps
+        (ref query/outputnode.go fastJsonNode — a documented reference
+        hot loop). The serving layers (HTTP/gRPC) call this; library
+        users who want Python objects keep query(). `explain` as in
+        query(): the `data` bytes are identical either way, the plan
+        tree rides in `extensions.explain`."""
+        t_in = time.perf_counter_ns()
+        rc_key, rc_fp = self._result_cache_probe(
+            q, variables, txn, best_effort, read_ts, explain, "json")
+        if rc_key is not None:
+            hit = self.result_cache.get(rc_key)
+            if hit is not None:
+                self._result_cache_hit_metrics(
+                    ctx, rc_key[1], time.perf_counter_ns() - t_in)
+                return hit  # the stored string: byte-identical
+        rc_gen = self._result_cache_gen(rc_key)
+        with bind_request(ctx), _span("query") as sp:
+            ex, done, lat, read_ts, expinfo = self._query_run(
+                q, variables, txn, best_effort, read_ts, ctx, sp,
+                explain=explain)
+            try:
+                with coststore.bind_plan(_skel_of(ex.plan)), \
+                        _span("encode") as esp:
+                    t0 = time.perf_counter_ns()
+                    data_json = ex.emit_json(done)
+                    if ex.parsed is not None \
+                            and ex.parsed.schema_request is not None:
+                        rows = _json.dumps(
+                            self._schema_rows(ex.parsed.schema_request),
+                            separators=(",", ":"))
+                        data_json = ('{"schema":' + rows + "}"
+                                     if data_json == "{}" else
+                                     data_json[:-1] + ',"schema":'
+                                     + rows + "}")
+                    lat.encoding_ns = time.perf_counter_ns() - t0
+                    esp["encode_us"] = lat.encoding_ns // 1000
+            finally:
+                self.coordinator.unpin_read(read_ts)
+            expl = None
+            if expinfo is not None:
+                from dgraph_tpu_torch.query.explain import build_explain
+                expl = build_explain(self, ex, done, expinfo)
+        self._query_metrics(lat, ctx, ex.plan)
+        ext_obj: dict = {"latency": lat.as_dict(),
+                         "server_latency": lat.server_latency(),
+                         "txn": {"start_ts": read_ts}}
+        if expl is not None:
+            ext_obj["explain"] = expl
+        ext = _json.dumps(ext_obj)
+        body = '{"data":' + data_json + ',"extensions":' + ext + "}"
+        if rc_key is not None:
+            self.result_cache.put(rc_key, rc_fp, body, gen=rc_gen)
+        return body
+
+    # ------------------------------------------------------------------
+    # Bulk traversal API: the device-first equivalent of @recurse for
+    # analytical workloads (ref query/recurse.go semantics, level sets
+    # instead of nested JSON).
+    # ------------------------------------------------------------------
+
 
     # ------------------------------------------------------------------
     # Bulk traversal API: the device-first equivalent of @recurse for
@@ -970,10 +1396,10 @@ class GraphDB:
         tab = self.tablets[pred]
         if tab.dirty():
             tab.rollup(self.fold_watermark())
-        if shard is not None:
-            # a hash-range view needs cluster/shard
-            raise _later_slice("a sharded tablet export", *_QUERY_PATH)
         view = tab
+        if shard is not None:
+            from dgraph_tpu_torch.cluster.shard import shard_view
+            view = shard_view(tab, nshards, shard)
         return {
             "schema": tab.schema.describe(),
             "tablet": dump_tablet(view),
@@ -1096,7 +1522,8 @@ class GraphDB:
                 for g in self.coordinator.groups},
             "schema": self.schema.describe_all(),
             "deviceCache": self.device_cache.stats(),
-            "planCache": None,
+            "planCache": self.plan_cache.stats()
+            if self.plan_cache is not None else None,
             "schemaEpoch": self.schema_epoch,
         }
 
@@ -1140,7 +1567,9 @@ class GraphDB:
             "cost": coststore.summary(),
             "costStore": coststore.stats(),
             "deviceCache": self.device_cache.stats(),
-            "planCache": None,
-            "planner": {"mode": "static"},
+            "planCache": self.plan_cache.stats()
+            if self.plan_cache is not None else None,
+            "planner": self.planner_impl.stats()
+            if self.planner_impl is not None else {"mode": "static"},
             "prefetch": None,
         }

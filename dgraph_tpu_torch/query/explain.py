@@ -1,0 +1,355 @@
+"""EXPLAIN / EXPLAIN ANALYZE: the compiled plan tree, annotated.
+
+A request that carries `@explain` (or HTTP `?explain=`) gets back
+`extensions.explain`: the plan the engine actually used — per-block
+stage chains from the compiled skeleton (query/plan.py), the plan
+cache outcome, the tier configuration — annotated with row estimates
+from the per-predicate tablet statistics (storage/tabstats.py). With
+`analyze`, the same tree additionally carries what execution actually
+did: resolved root/result row counts per block, the stage spans of
+this request's trace with their durations, and the metrics-counter
+delta of execution (tier hits, fallbacks, cache movement).
+
+EXPLAIN never changes execution: both modes run the query normally and
+the `data` payload is byte-identical with or without the flag (tier-1
+proves it differentially). That is the reference's `debug=true`
+philosophy extended to plan shape: annotate the real request, never a
+simulation of it.
+
+Row-estimate bases and their DOCUMENTED error bounds — these are the
+contract tests/test_explain.py enforces over the full 75-query golden
+workload and docs/deployment.md publishes:
+
+  exact    est == actual. Literal-uid roots and roots over absent
+           tablets: the estimator can count them without statistics.
+  index    actual <= est <= estMax. The estimate counts a candidate
+           SUPERSET the stage then verifies (has() key cardinality,
+           similar_to's k): exact on clean tablets up to verification,
+           never an undercount.
+  stats    actual <= estMax (est itself is the statistical guess —
+           token-index fanout, selectivity heuristics — with no
+           per-query guarantee). estMax is the hard cap: the tablet's
+           key cardinality plus its dirty-overlay op count.
+  unknown  no claim. Var-dependent roots, count-at-root device
+           shortcuts, shortest paths: plan-time statistics cannot see
+           their inputs.
+
+`estMax` everywhere includes `dirtyOps` slack: un-folded overlay ops
+may introduce uids the base statistics have never seen; a rollup folds
+them and the slack returns to zero.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from dgraph_tpu_torch.gql.ast import VALUE_VAR, Function, GraphQuery
+from dgraph_tpu_torch.utils import metrics, tracing
+
+# root functions whose index/scan candidates come from the predicate's
+# own key set: actual rows can never exceed keys + dirty slack
+_TABLET_BOUND_FNS = frozenset((
+    "eq", "le", "lt", "ge", "gt", "between", "anyofterms", "allofterms",
+    "anyoftext", "alloftext", "anyof", "allof", "regexp", "match",
+    "near", "within", "contains", "intersects", "checkpwd",
+))
+
+_BASIS_RANK = {"exact": 0, "index": 1, "stats": 2, "unknown": 3}
+
+# stage spans ANALYZE surfaces from the request's trace, in recorded
+# order (subset of coststore.STAGES: the per-request ones)
+_ANALYZE_SPANS = frozenset((
+    "parse", "plan.compile", "block", "eq", "ineq", "setops", "expand",
+    "sort", "match", "similar_to", "device.tile_load", "encode",
+    "batch.wait",
+))
+
+
+def _worse(a: str, b: str) -> str:
+    return a if _BASIS_RANK[a] >= _BASIS_RANK[b] else b
+
+
+def _tab_stats(db, pred: str) -> Optional[dict]:
+    """Cached per-tablet statistics (never bumps the touch counter —
+    the estimator is not a query-path read)."""
+    tab = db.tablets.get(pred)
+    if tab is None or not hasattr(tab, "base_ts"):
+        # federated RemoteTablet proxies carry no stats surface: the
+        # coordinator estimates nothing rather than crash a query that
+        # executed fine ("unknown" basis downstream)
+        return None
+    from dgraph_tpu_torch.storage.tabstats import tablet_stats
+    return tablet_stats(tab)
+
+
+def _est(rows: int, cap: int, basis: str, source: str) -> dict:
+    rows = max(0, int(rows))
+    return {"estRows": min(rows, cap) if cap >= 0 else rows,
+            "estRowsMax": int(cap), "basis": basis, "source": source}
+
+
+def _unknown(source: str) -> dict:
+    return {"estRows": -1, "estRowsMax": -1, "basis": "unknown",
+            "source": source}
+
+
+def _fn_estimate(db, fn: Function) -> dict:
+    """Estimated result rows of one root function, from the tablet
+    statistics alone (no data access beyond the cached aggregate)."""
+    name = fn.name
+    if name == "uid":
+        if fn.needs_var:
+            return _unknown("uid(var) domain is runtime state")
+        n = len(set(fn.uids))
+        return _est(n, n, "exact", "literal uid list")
+    if fn.needs_var or fn.is_value_var or fn.is_len_var:
+        return _unknown("value-var function")
+    if fn.is_count:
+        # le(count(p), 0) matches uids WITHOUT the predicate — no
+        # tablet statistic bounds that set
+        return _unknown("count() root")
+    pred = fn.attr or ""
+    reverse = pred.startswith("~")
+    base = pred[1:] if reverse else pred
+    st = _tab_stats(db, base)
+    if st is None:
+        if name == "type":
+            st = _tab_stats(db, "dgraph.type")
+            if st is None:
+                if db.tablets.get("dgraph.type") is not None:
+                    return _unknown("tablet without statistics surface")
+                return _est(0, 0, "exact", "no dgraph.type tablet")
+            cap = st["nSrc"] + _dirty(st)
+            return _est(st["tokenIndex"]["avgPostings"], cap, "stats",
+                        "dgraph.type token index")
+        # "exact 0" is only a valid claim when the tablet truly does
+        # not exist; a present-but-opaque tablet (RemoteTablet) makes
+        # no claim at all
+        if db.tablets.get(base) is not None:
+            return _unknown("tablet without statistics surface")
+        return _est(0, 0, "exact", "no tablet for predicate")
+    dirty = _dirty(st)
+    cap = st["nSrc"] + dirty
+    # the superset ("index") claim — actual <= est — only holds when
+    # the base statistics saw every op: a dirty overlay may hold uids
+    # the base never had, so key-count estimates demote to "stats"
+    # (estMax keeps the bound: it carries the dirty slack)
+    key_basis = "stats" if dirty else "index"
+    if name == "has":
+        if reverse:
+            n_dst = st["nDst"]
+            if n_dst >= 0:
+                return _est(n_dst, st["edges"] + dirty, key_basis,
+                            "reverse-index key count")
+            return _est(st["edges"], st["edges"] + dirty, "stats",
+                        "edge count (nDst unknown)")
+        return _est(st["nSrc"], cap, key_basis, "tablet key count")
+    if name == "similar_to":
+        try:
+            k = int(float(fn.args[1].value))
+        except (IndexError, ValueError, TypeError):
+            return _unknown("similar_to without literal k")
+        return _est(min(k, st["nSrc"]), min(k, cap), "index",
+                    "top-k bound")
+    if name == "eq":
+        n_vals = max(1, len(fn.args))
+        avg = st["tokenIndex"]["avgPostings"]
+        return _est(int(round(n_vals * avg)) if avg else min(1, cap),
+                    cap, "stats", "token-index fanout")
+    if name in ("anyofterms", "anyoftext", "anyof"):
+        n_terms = sum(len(str(a.value).split()) for a in fn.args) or 1
+        avg = st["tokenIndex"]["avgPostings"]
+        return _est(int(round(n_terms * avg)), cap, "stats",
+                    "token-index fanout (union)")
+    if name in ("allofterms", "alloftext", "allof"):
+        avg = st["tokenIndex"]["avgPostings"]
+        return _est(int(round(avg)), cap, "stats",
+                    "token-index fanout (intersection)")
+    if name in ("le", "lt", "ge", "gt"):
+        return _est(st["nSrc"] // 2, cap, "stats",
+                    "half-range heuristic")
+    if name == "between":
+        return _est(st["nSrc"] // 3, cap, "stats",
+                    "range-fraction heuristic")
+    if name in _TABLET_BOUND_FNS:
+        return _est(st["nSrc"], cap, "stats", "tablet key count")
+    return _unknown(f"no estimator for {name}()")
+
+
+def _dirty(st: dict) -> int:
+    return int(st.get("dirtyOps", 0))
+
+
+def _root_estimate(db, gq: GraphQuery) -> dict:
+    """Estimate for a block's resolved root set BEFORE filters and
+    pagination — the number _run_block_inner measures as root_rows."""
+    if gq.attr == "shortest":
+        return _unknown("shortest-path block")
+    parts: list[dict] = []
+    if gq.uids:
+        n = len(set(gq.uids))
+        parts.append(_est(n, n, "exact", "literal uid list"))
+    if any(vc.typ != VALUE_VAR for vc in gq.needs_var):
+        parts.append(_unknown("uid-var root"))
+    elif gq.needs_var and gq.func is not None and gq.func.name == "uid":
+        parts.append(_unknown("uid(var) root"))
+    if gq.func is not None and gq.func.name != "uid":
+        parts.append(_fn_estimate(db, gq.func))
+    # (func: uid(...) literals need no part of their own — the parser
+    # copies them into gq.uids; uid(var) roots were flagged above)
+    if not parts:
+        if gq.is_empty:
+            return _est(0, 0, "exact", "empty var block")
+        return _unknown("no root source")
+    basis = "exact"
+    for p in parts:
+        basis = _worse(basis, p["basis"])
+    if basis == "unknown":
+        return _unknown("; ".join(p["source"] for p in parts))
+    # union of parts: each part's estimate/cap adds (overlap only
+    # shrinks the actual, which every non-exact basis already allows)
+    est = sum(p["estRows"] for p in parts)
+    cap = sum(p["estRowsMax"] for p in parts)
+    if len(parts) > 1:
+        basis = _worse(basis, "index")  # union overlap: no longer exact
+    src = parts[0]["source"] if len(parts) == 1 \
+        else "union: " + "; ".join(p["source"] for p in parts)
+    return _est(est, cap, basis, src)
+
+
+def _child_estimate(db, gq: GraphQuery, parent_rows: int) -> dict:
+    """Expansion-size estimate for one child predicate given the
+    parent's (estimated) row count: uid edges multiply by the tablet's
+    mean fan-out, scalars fill at most one row per parent."""
+    pred = (gq.attr or "").lstrip("~")
+    st = _tab_stats(db, pred)
+    if st is None or parent_rows < 0:
+        return _unknown("no tablet statistics")
+    fan = st["fanout"].get("avg", 0.0) or 0.0
+    if st["type"] == "uid":
+        return _est(int(round(parent_rows * max(fan, 1.0))),
+                    st["edges"] + _dirty(st), "stats",
+                    "mean fan-out")
+    return _est(min(parent_rows, st["nSrc"] + _dirty(st)),
+                st["nPostings"] + _dirty(st), "stats",
+                "scalar fill bound")
+
+
+def _node_rows(node) -> int:
+    """Observed result rows of one executed node: resolved uids, or
+    bound scalar values when the node never materializes a uid set."""
+    n = int(len(node.dest))
+    if n == 0 and node.values:
+        n = len(node.values)
+    if n == 0 and node.col_vals:
+        n = len(node.col_vals)
+    return n
+
+
+def _explain_node(db, gq: GraphQuery, node, mode: str,
+                  parent_rows: int, depth: int = 0) -> dict:
+    est = _root_estimate(db, gq) if depth == 0 \
+        else _child_estimate(db, gq, parent_rows)
+    out: dict[str, Any] = {
+        "name": gq.alias or gq.attr,
+        "attr": gq.attr,
+        **est,
+    }
+    if depth == 0 and getattr(node, "fused", ""):
+        # per-block fusion attribution: "fused" when the whole
+        # filter+order+page chain ran as one device executable,
+        # "staged:<reason>" when it fell back (query/fusion.py)
+        out["fusion"] = node.fused
+    if mode == "analyze":
+        out["actualRows"] = _node_rows(node)
+        if depth == 0:
+            out["actualRootRows"] = int(node.root_rows)
+    kids = []
+    rows_in = est["estRows"]
+    for ch in node.children:
+        kids.append(_explain_node(db, ch.gq, ch, mode, rows_in,
+                                  depth + 1))
+    if kids:
+        out["children"] = kids
+    return out
+
+
+def _stage_spans(trace_id: str) -> list[dict]:
+    """This request's stage spans (recorded order) with durations and
+    size attrs — the per-request slice of what the coststore
+    aggregates globally."""
+    out = []
+    for rec in tracing.spans_for(trace_id):
+        if rec["name"] not in _ANALYZE_SPANS:
+            continue
+        ent: dict[str, Any] = {"stage": rec["name"],
+                               "durUs": round(rec.get("dur_us", 0.0), 1)}
+        args = rec.get("args") or {}
+        for k in ("pred", "fn", "alias", "rows", "n", "tier", "role"):
+            if k in args:
+                ent[k] = args[k]
+        out.append(ent)
+    return out
+
+
+def build_explain(db, ex, done, expinfo: dict) -> dict:
+    """Assemble extensions.explain for one finished execution.
+    `ex`/`done` are the request's Executor and its executed blocks;
+    `expinfo` carries the mode, this request's trace id, the
+    pre-execution counter snapshot and the plan-cache outcome."""
+    mode = expinfo["mode"]
+    plan = ex.plan
+    planner: dict[str, Any] = {
+        "cached": plan is not None,
+        "cacheHit": expinfo.get("cache", {}).get("hit"),
+    }
+    if plan is not None:
+        planner.update(plan.describe())
+        planner["memoEntries"] = len(plan._memo)
+    else:
+        planner["skeleton"] = None
+        planner["epoch"] = getattr(db, "schema_epoch", 0)
+    out: dict[str, Any] = {
+        "mode": mode,
+        "planner": planner,
+        "tiers": {
+            # adaptive: the prefer_* flags are OVERRIDES bounding
+            # which tiers the cost-based planner may pick per stage;
+            # static: they decide outright (pre-PR-13 heuristics)
+            "planner": getattr(db, "planner", "static"),
+            "columnar": bool(getattr(db, "prefer_columnar", True)),
+            "compressed": bool(getattr(db, "prefer_columnar", True))
+            and bool(getattr(db, "prefer_compressed", True)),
+            "device": bool(getattr(db, "prefer_device", False)),
+            "deviceMinEdges": int(getattr(db, "device_min_edges", 0)),
+            # whole-plan fusion (query/fusion.py): a compiled-plan
+            # tier — per-block served/fell-back attribution rides on
+            # each block node as `fusion`
+            "fused": bool(getattr(db, "prefer_fused", True)),
+            "fusedMinRows": int(getattr(db, "fused_min_rows", 0)),
+            "quantized": bool(getattr(db, "vec_quantized", False)),
+            # per-stage vector-tier decisions, one per similar_to
+            # evaluation this request ran: the tier that actually
+            # scored (exact / two_stage / quantized / sharded*) and,
+            # for the quantized tier, its recall budget (nprobe,
+            # rerank depth, calibrated sample recall)
+            "vector": list(getattr(ex, "vector_decisions", ())),
+        },
+        # per-stage chosen tier + estimate basis + decision inputs
+        # (query/planner.py Decision.describe): every tier decision
+        # this request consulted, in consult order — `reoptimized`
+        # marks a decision rebuilt after an estimate violation or
+        # cost-drift invalidation (version = its generation)
+        "tierDecisions": [d.describe()
+                          for d in getattr(ex, "tier_decisions", ())],
+        "blocks": [_explain_node(db, gq, node, mode, -1)
+                   for gq, node in done],
+    }
+    if mode == "analyze":
+        out["traceId"] = expinfo.get("trace_id", "")
+        # execution-side counter movement (post-parse: the plan-cache
+        # counters land in planner.cacheHit instead)
+        out["counters"] = metrics.counters_delta(
+            expinfo["counters_before"])
+        out["stages"] = _stage_spans(expinfo.get("trace_id", ""))
+    return out

@@ -1,0 +1,643 @@
+"""Cost-based adaptive planner: the stats plane drives tier choice.
+
+Three PRs built evidence nobody consumed: per-predicate tablet
+statistics with row-estimate bases (storage/tabstats.py, PR 7), an
+observed per-stage cost store keyed (stage, tier, plan skeleton, size
+bucket) (utils/coststore.py, PR 7), and a compressed posting tier
+(PR 9) — yet tier routing stayed the static
+`GraphDB(device_min_edges=1024, prefer_columnar, prefer_compressed)`
+flags. This module closes the loop, the "Self-Driving DBMS"
+(PAPERS.md) shape: per compiled-plan stage, pick
+postings / columnar / compressed / device from
+
+    estimated rows  (tabstats row estimates — EXPLAIN's four-basis
+                     error contract — sharpened by the per-token
+                     posting-length histogram, overridden by LEARNED
+                     actuals after an estimate violation)
+  x observed cost   (coststore EWMA per (stage, tier, bucket), falling
+                     back to the documented static priors below when a
+                     cell is cold)
+
+and cache the decision on the `Plan` via its memo machinery
+(`Plan.decide`), so a warm request pays ONE dict probe per stage.
+
+Self-correction — the planner the reference never had:
+
+  * estimate violation: the executed stage's actual rows land ≥ 3
+    size buckets (8x) away from the estimate, or break the basis
+    contract (`index`: actual <= estMax). The actual is LEARNED
+    (EWMA per stage key) and the cached decision invalidated, so the
+    next request re-decides against reality instead of repeating the
+    mis-estimate.
+  * cost drift: the coststore's fast/slow EWMA ratio for the chosen
+    tier leaves [1/DRIFT, DRIFT] — the tier's cost moved (cache
+    pressure, a rollup changed the data shape) — sampled every
+    OUTCOME_SAMPLE outcomes, invalidating on trip.
+
+  Re-planning is BOUNDED per stage key (token bucket: REPLAN_BURST,
+  one token per REPLAN_REFILL_S) and counter-tracked
+  (`planner_reoptimized_total{reason=}`,
+  `planner_estimate_violations_total`,
+  `planner_replans_suppressed_total`) so a flapping estimate cannot
+  melt the plan cache.
+
+Plan-level decisions on the same foundation:
+
+  * probe-vs-scan pivot (`probe_or_scan`): an eq filter over a small
+    candidate set scans the candidates' values instead of probing a
+    token index whose estimated postings dwarf them ("index-probe vs
+    columnar-scan", ref algo/uidlist.go:151's size-ratio strategy
+    pick lifted to the index/candidate boundary).
+  * k-way intersection galloping ratio (`gallop_ratio`): "SIMD
+    Compression and the Intersection of Sorted Integers" (PAPERS.md)
+    shows the gallop-vs-merge choice is a DENSITY decision, not a
+    fixed size ratio — sparse expected intersections gallop earlier,
+    dense ones merge longer.
+
+COLD BEHAVIOR IS THE STATIC LADDER. The priors are ordering priors:
+their magnitudes anchor to the round-5 measured host constants
+(executor `_HOST_PER_*`), but their ordering is chosen so a cold cell
+reproduces exactly what the static flags did (compressed ≥ columnar ≥
+postings; device only past the measured dispatch RTT). Adaptivity is
+therefore pure upside: with no evidence the engine routes as before,
+and every deviation is backed by an observed cell or a learned actual.
+The flags demote to overrides — `prefer_columnar=False` (the parity
+oracle) removes the columnar+compressed tiers from every decision,
+`prefer_device=False` the device tier, `device_min_edges <= 1` still
+force-routes device — so pinned-tier debugging and the differential
+parity suites keep their meaning.
+
+Parity is structural: every tier is byte-identical by construction
+(the differential suites prove it), so the planner chooses only among
+answers that are already proven equal — it can never trade
+correctness for speed.
+"""
+
+from __future__ import annotations
+
+import threading
+import time as _time
+from typing import Any, Optional
+
+from dgraph_tpu_torch.utils import coststore, metrics
+
+TIERS = ("postings", "columnar", "compressed", "device")
+
+# -- documented static priors: (fixed_us, per_row_us) per (stage,
+# tier). docs/deployment.md publishes this table; re-measure against
+# `bench_micro.py --planner-overhead` + the round-5 constants when the
+# data plane changes. ORDERING invariant (checked by
+# tests/test_planner.py): for every stage and every row count,
+# compressed <= columnar <= postings, so cold decisions reproduce the
+# static tier ladder.
+STATIC_PRIORS: dict[tuple[str, str], tuple[float, float]] = {
+    # eq/terms token-index algebra: pack block-skip vs dense CSR probe
+    # vs per-token index_uids walk + per-posting verify (~0.5 µs/row,
+    # the round-5 python-loop constant)
+    ("eq", "compressed"): (4.0, 0.010),
+    ("eq", "columnar"): (6.0, 0.020),
+    ("eq", "postings"): (8.0, 0.500),
+    ("setops", "compressed"): (4.0, 0.010),
+    ("setops", "columnar"): (6.0, 0.020),
+    ("setops", "postings"): (8.0, 0.500),
+    # ineq: device range kernel vs cached sort-key-array mask
+    # (~5e-9 s/value measured) vs per-uid dict walk
+    ("ineq", "device"): (5.0, 0.002),
+    ("ineq", "columnar"): (6.0, 0.005),
+    ("ineq", "postings"): (8.0, 0.500),
+    # sort: device multisort vs presorted-permutation walk (cost
+    # scales with the COLUMN, see rows_by_tier at the call site) vs
+    # host key-gather + lexsort (~2e-7 s/key, round-5)
+    ("sort", "device"): (5.0, 0.002),
+    ("sort", "columnar"): (6.0, 0.010),
+    ("sort", "postings"): (8.0, 0.050),
+    # similar_to: quantized IVF probe (per SCANNED row — the caller
+    # passes rows_by_tier with n*nprobe/nlist, so the row count
+    # carries the probe's selectivity; per-row covers the int8
+    # convert+gemm) vs MXU exact top-k vs host brute-force MIPS.
+    # postings per-row is the MEASURED float64 host constant
+    # (~180 ms / 100k x 128 single query, BENCH_VECTORS
+    # host_exact_qps) — an optimistic figure here makes observed
+    # quantized/device evidence "lose" to a fantasy host tier and
+    # mis-routes similar_to onto a path that is orders slower
+    ("similar_to", "quantized"): (6.0, 0.010),
+    ("similar_to", "device"): (5.0, 0.002),
+    ("similar_to", "postings"): (8.0, 1.800),
+}
+
+# estimate-violation threshold: actual rows >= this many size buckets
+# (log2) away from the estimate invalidates the decision
+VIOLATION_BUCKETS = 3
+# drift threshold on the coststore's fast/slow EWMA ratio
+DRIFT = 2.0
+# drift/rival checks run on EVERY outcome for a decision's first
+# EARLY_SAMPLES (each check is a couple of locked dict probes, and a
+# fresh decision is exactly when contrary evidence should bite
+# fastest — convergence within a handful of requests per stage key),
+# then back off to every OUTCOME_SAMPLE-th (the EWMAs move slowly)
+EARLY_SAMPLES = 8
+OUTCOME_SAMPLE = 8
+# rival margin: a warm ALTERNATIVE tier whose observed cost undercuts
+# the chosen tier's by this factor invalidates the decision (the
+# other half of cost drift: your tier didn't move, a better one
+# appeared — e.g. another arm/pin/workload populated its cells).
+# The margin is the anti-flap hysteresis over the interpolated
+# histogram medians.
+RIVAL_MARGIN = 1.5
+# re-plan token bucket per stage key: burst + refill
+REPLAN_BURST = 4
+REPLAN_REFILL_S = 10.0
+# -- exploration: budgeted probing of UNOBSERVED tiers ----------------
+# The self-correction loop above only re-judges tiers that have
+# evidence; a tier nobody ever served stays cold forever (the rival
+# check needs a warm cell to rival with). Exploration closes that gap:
+# once a stage key has real evidence for SOME tier, a cold tier whose
+# modeled cost is within EXPLORE_MARGIN of the chosen tier's may be
+# probed — served once, its stage span lands a cost cell, and the
+# decision immediately re-judges with the new evidence
+# (record_outcome invalidates an explored decision after its first
+# outcome). Budgeted by its own token bucket per stage key so a hot
+# path never pays more than EXPLORE_BURST probes per refill window,
+# and NEVER fires cold-cold: with no evidence at all the static
+# ladder stays authoritative (the documented cold contract).
+EXPLORE_MARGIN = 4.0
+EXPLORE_BURST = 2
+EXPLORE_REFILL_S = 30.0
+# learned-actual EWMA weight (fast: a violation should dominate the
+# stale estimate within a couple of observations)
+LEARN_ALPHA = 0.5
+# bound on the learned-rows / versions / token tables
+MAX_KEYS = 4096
+
+
+def _bucket(n: int) -> int:
+    n = int(n)
+    return n.bit_length() if n > 0 else 0
+
+
+def token_quantile(token_index: dict, q: float = 0.75) -> float:
+    """Per-token posting-length quantile from the tabstats histogram
+    (log2 buckets; bucket b covers lengths with bit_length b). The
+    center of the bucket holding the q-th token is the estimate — a
+    REAL per-token basis instead of the tablet-wide mean, so a
+    Zipfian index's hot tokens stop being estimated at `avg`."""
+    hist = token_index.get("hist")
+    if not hist:
+        return float(token_index.get("avgPostings", 0.0) or 0.0)
+    total = sum(hist)
+    if not total:
+        return float(token_index.get("avgPostings", 0.0) or 0.0)
+    want = q * total
+    seen = 0
+    for b, c in enumerate(hist):
+        seen += c
+        if seen >= want:
+            # bucket b holds lengths in (2^(b-1), 2^b]: use the
+            # midpoint (0 bucket = empty lists)
+            return 0.75 * (1 << b) if b else 0.0
+    return float(token_index.get("maxPostings", 0) or 0)
+
+
+class Decision:
+    """One cached per-stage tier decision plus everything EXPLAIN
+    needs to say WHY (decision inputs, estimate basis, cost model per
+    tier, re-optimization generation)."""
+
+    __slots__ = ("stage", "pred", "tier", "basis", "est_rows",
+                 "est_basis", "bucket", "costs", "version", "why",
+                 "skeleton", "outcomes", "rows_buckets")
+
+    def __init__(self, stage: str, pred: str, tier: str, basis: str,
+                 est_rows: int, est_basis: str, bucket: int,
+                 costs: dict[str, float], version: int, why: str,
+                 skeleton: str,
+                 rows_buckets: Optional[dict[str, int]] = None):
+        self.stage = stage
+        self.pred = pred
+        self.tier = tier
+        self.basis = basis          # "observed" | "prior" | "mixed"
+        self.est_rows = est_rows
+        self.est_basis = est_basis  # the row estimate's basis
+        self.bucket = bucket
+        self.costs = costs          # per-tier modeled cost (µs)
+        self.version = version      # re-optimization generation
+        self.why = why
+        self.skeleton = skeleton
+        self.outcomes = 0           # outcomes recorded against this
+        # per-tier row-bucket overrides the decision was costed with
+        # (the similar_to seam: the quantized tier scans
+        # ~n*nprobe/nlist rows and its cost cells key on THAT bucket;
+        # outcome-time drift/rival probes must look there too)
+        self.rows_buckets = rows_buckets
+
+    def describe(self) -> dict:
+        return {"stage": self.stage, "pred": self.pred,
+                "tier": self.tier, "basis": self.basis,
+                "estRows": self.est_rows,
+                "estBasis": self.est_basis,
+                "sizeBucket": self.bucket,
+                "costUs": {t: round(c, 3)
+                           for t, c in self.costs.items()},
+                "version": self.version,
+                "reoptimized": self.version > 0,
+                "why": self.why}
+
+
+class AdaptivePlanner:
+    """Per-engine decision maker over the process-global coststore.
+    Thread-safe; every mutable table is bounded."""
+
+    def __init__(self, db):
+        self.db = db
+        self._lock = threading.Lock()
+        # dglint: guarded-by=_versions:atomic,_consults:atomic
+        # (the warm-path version() probe is a bare GIL-atomic dict
+        # read on purpose — writes serialize under _lock; _consults
+        # is a stats-grade counter, a lost increment is acceptable)
+        # (skeleton, stage, pred) -> re-optimization generation
+        self._versions: dict[tuple, int] = {}
+        # (skeleton, stage, pred) -> learned actual-rows EWMA
+        self._learned: dict[tuple, float] = {}
+        # (skeleton, stage, pred) -> (tokens, last_refill_mono)
+        self._replan_tokens: dict[tuple, list] = {}
+        # (skeleton, stage, pred) -> (tokens, last_refill_mono) for
+        # cold-tier exploration (separate budget: a replan storm must
+        # not eat the exploration allowance and vice versa)
+        self._explore_tokens: dict[tuple, list] = {}
+        self._explored = 0
+        # decision mix for /debug/stats + the dgtop PLANNER panel
+        self._mix: dict[tuple[str, str], int] = {}
+        self._built = 0
+        self._consults = 0  # every choose() call incl. cache hits
+        # warm serves: decisions handed out by the executor's
+        # plan-routing layer WITHOUT consulting choose() (incremented
+        # by Executor._routed; plain int, stats-grade) — the
+        # planner-overhead gate multiplies these by the measured
+        # warm-path cost, so the gate stays meaningful in the steady
+        # state where consults are zero
+        self._warm_serves = 0
+        self._violations = 0
+        self._reoptimized = 0
+        self._suppressed = 0
+
+    # -- decision ------------------------------------------------------
+
+    def version(self, skeleton: str, stage: str, pred: str) -> int:
+        # lock-free: a dict probe is GIL-atomic and the value is an
+        # int — this sits on the warm-request validity check
+        return self._versions.get((skeleton, stage, pred), 0)
+
+    def learned_rows(self, skeleton: str, stage: str,
+                     pred: str) -> Optional[float]:
+        with self._lock:
+            return self._learned.get((skeleton, stage, pred))
+
+    def choose(self, plan, stage: str, pred: str, est: dict,
+               avail: tuple[str, ...],
+               rows_by_tier: Optional[dict[str, int]] = None
+               ) -> Optional[Decision]:
+        """The per-stage entry: the current decision for
+        (plan, stage, pred) — served from the plan's decision cache,
+        built on first use or after an invalidation bumped the
+        version. `est` is an EXPLAIN-shaped row estimate
+        ({estRows, estRowsMax, basis, source}); `rows_by_tier`
+        overrides the row count the cost model multiplies for
+        specific tiers (the sort seam: the presorted-permutation walk
+        scales with the COLUMN, not the candidate set)."""
+        if plan is None or not avail:
+            return None
+        self._consults += 1  # plain int: stats-grade, GIL-atomic
+        skeleton = plan.skeleton_hex
+        k = (skeleton, stage, pred)
+        with self._lock:
+            version = self._versions.get(k, 0)
+            learned = self._learned.get(k)
+        est_rows = max(0, int(est.get("estRows", -1)))
+        est_basis = str(est.get("basis", "unknown"))
+        if learned is not None:
+            est_rows = int(learned)
+            est_basis = "learned"
+        bucket = _bucket(est_rows)
+        # per-tier row drivers quantize to log2 buckets BEFORE keying:
+        # raw counts would mint a fresh cache entry per candidate-set
+        # size and turn every sort into a decision rebuild
+        rb = {t: _bucket(n) for t, n in rows_by_tier.items()} \
+            if rows_by_tier else None
+        key = ("tier", stage, pred, bucket,
+               tuple(sorted(rb.items())) if rb else ())
+        return plan.decide(key, version, lambda: self._build(
+            plan, stage, pred, est_rows, est_basis, bucket, avail,
+            version, skeleton, rb))
+
+    @staticmethod
+    def _rows_of_bucket(b: int) -> int:
+        return int(0.75 * (1 << b)) if b else 0
+
+    def _build(self, plan, stage: str, pred: str, est_rows: int,
+               est_basis: str, bucket: int, avail: tuple[str, ...],
+               version: int, skeleton: str,
+               rows_buckets: Optional[dict[str, int]]) -> Decision:
+        costs: dict[str, float] = {}
+        cells: dict[str, Optional[dict]] = {}
+        rtt_us = self.db.device_dispatch_seconds() * 1e6
+        for tier in avail:
+            rows = self._rows_of_bucket(rows_buckets[tier]) \
+                if rows_buckets and tier in rows_buckets else est_rows
+            cell = coststore.estimate(stage, tier, _bucket(rows),
+                                      skeleton)
+            cells[tier] = cell
+            if cell is not None and cell["warm"]:
+                # histogram median, not EWMA: robust to the tier's
+                # first-observation cache-build spike. Observed device
+                # cells already CONTAIN the dispatch round-trip (stage
+                # spans wrap the whole device call) — adding the RTT
+                # again would double-count it and mis-route warm
+                # device stages to slower host tiers.
+                costs[tier] = cell["p50_us"]
+            else:
+                fixed, per_row = STATIC_PRIORS.get(
+                    (stage, tier), (8.0, 0.5))
+                costs[tier] = fixed + per_row * rows
+                if tier == "device":
+                    # cold prior: model the measured dispatch
+                    # round-trip the priors' compute figures exclude
+                    costs[tier] += rtt_us
+        warm = [t for t in avail if cells[t] is not None
+                and cells[t]["warm"]]
+        if len(warm) >= 2:
+            # at least two tiers have real evidence: trust the
+            # observed costs outright
+            tier = min(warm, key=lambda t: costs[t])
+            basis = "observed"
+            why = "observed EWMA over " + ",".join(sorted(warm))
+        elif len(warm) == 1 and warm[0] != min(
+                avail, key=lambda t: costs[t]) \
+                and costs[warm[0]] > min(costs.values()):
+            # one observed tier that LOSES to a prior: deviating from
+            # the static ladder on one-sided evidence is safe only
+            # away from the margin (2x), else priors keep the ladder
+            best_prior = min(avail, key=lambda t: costs[t])
+            if costs[warm[0]] > 2.0 * costs[best_prior]:
+                tier, basis = best_prior, "mixed"
+                why = (f"observed {warm[0]} "
+                       f"{costs[warm[0]]:.0f}us > 2x prior "
+                       f"{best_prior}")
+            else:
+                tier, basis = warm[0], "observed"
+                why = "single observed tier within margin"
+        else:
+            tier = min(avail, key=lambda t: costs[t])
+            basis = "prior" if not warm else "observed"
+            why = "static priors (cold cells)" if not warm \
+                else "observed EWMA"
+        probe = self._maybe_explore(skeleton, stage, pred, avail,
+                                    warm, costs, tier)
+        if probe is not None:
+            basis = "explored"
+            why = (f"probing cold tier {probe} "
+                   f"({costs[probe]:.0f}us model) vs chosen {tier} "
+                   f"({costs[tier]:.0f}us)")
+            tier = probe
+        dec = Decision(stage, pred, tier, basis, est_rows, est_basis,
+                       bucket, costs, version, why, skeleton,
+                       rows_buckets=rows_buckets)
+        metrics.inc_counter("planner_decisions_total",
+                            labels={"tier": tier})
+        with self._lock:
+            self._built += 1
+            k = (stage, tier)
+            self._mix[k] = self._mix.get(k, 0) + 1
+        return dec
+
+    def _maybe_explore(self, skeleton: str, stage: str, pred: str,
+                       avail: tuple[str, ...], warm: list,
+                       costs: dict[str, float],
+                       chosen: str) -> Optional[str]:
+        """The cheapest UNOBSERVED tier worth one budgeted probe, or
+        None. Fires only with real evidence present (never cold-cold —
+        the static ladder stays the cold contract), only within
+        EXPLORE_MARGIN of the chosen tier's modeled cost, and only
+        while the stage key's exploration token bucket has budget."""
+        if not getattr(self.db, "planner_explore", True) or not warm:
+            return None
+        cold = [t for t in avail if t not in warm and t != chosen]
+        if not cold:
+            return None
+        best = min(cold, key=lambda t: costs[t])
+        if costs[best] > EXPLORE_MARGIN * costs[chosen]:
+            return None
+        now = _time.monotonic()
+        k = (skeleton, stage, pred)
+        with self._lock:
+            tb = self._explore_tokens.get(k)
+            if tb is None:
+                if len(self._explore_tokens) >= MAX_KEYS:
+                    self._explore_tokens.clear()
+                tb = [float(EXPLORE_BURST), now]
+                self._explore_tokens[k] = tb
+            tb[0] = min(float(EXPLORE_BURST),
+                        tb[0] + (now - tb[1]) / EXPLORE_REFILL_S)
+            tb[1] = now
+            if tb[0] < 1.0:
+                return None
+            tb[0] -= 1.0
+            self._explored += 1
+        metrics.inc_counter("planner_explored_total",
+                            labels={"tier": best})
+        return best
+
+    # -- outcome / re-optimization -------------------------------------
+
+    def record_outcome(self, dec: Optional[Decision],
+                       actual_rows: int) -> None:
+        """Feed one executed stage's observed result size back.
+        Estimate violations learn the actual and invalidate; cost
+        drift (sampled) invalidates. Both are rate-limited per stage
+        key — EXPLAIN ANALYZE + the planner counters surface every
+        event."""
+        if dec is None:
+            return
+        dec.outcomes += 1
+        actual_rows = max(0, int(actual_rows))
+        ab = _bucket(actual_rows)
+        key = (dec.skeleton, dec.stage, dec.pred)
+        if dec.basis == "explored":
+            # the probe served: its stage span just landed the cold
+            # tier's first cost cell. Re-judge immediately instead of
+            # serving the probe tier until drift/rival notices — one
+            # exploration buys exactly one observation
+            self._invalidate(key, "explored")
+            return
+        if abs(ab - dec.bucket) >= VIOLATION_BUCKETS:
+            with self._lock:
+                self._violations += 1
+                if len(self._learned) >= MAX_KEYS:
+                    self._learned.clear()
+                old = self._learned.get(key)
+                self._learned[key] = actual_rows if old is None \
+                    else old + LEARN_ALPHA * (actual_rows - old)
+            metrics.inc_counter("planner_estimate_violations_total")
+            self._invalidate(key, "violation")
+            return
+        if dec.outcomes <= EARLY_SAMPLES \
+                or dec.outcomes % OUTCOME_SAMPLE == 0:
+            # probe at the ACTUAL size bucket `ab`, not the estimate
+            # bucket: cost cells are recorded under the span's real
+            # result size, and a sub-violation estimate error (1-2
+            # buckets) would otherwise make every probe miss — both
+            # self-correction paths would silently never fire. A
+            # tier costed with a rows_buckets override records its
+            # spans under THAT bucket (the quantized tier's scanned
+            # rows), so its probes follow the override, not `ab`.
+            rb = dec.rows_buckets or {}
+            ratio = coststore.drift(dec.stage, dec.tier,
+                                    rb.get(dec.tier, ab),
+                                    dec.skeleton)
+            if ratio >= DRIFT or ratio <= 1.0 / DRIFT:
+                self._invalidate(key, "drift")
+                return
+            # rival check: cost drift's other direction — a warm
+            # alternative's observed cost now undercuts the chosen
+            # tier's. Without this a cold-prior choice never gets
+            # revisited (nothing violates, its own EWMA is steady),
+            # even as evidence piles up that another tier is faster.
+            # exact_only: this runs per sampled OUTCOME — two dict
+            # probes per tier, never the estimate() table scan (that
+            # is decision-build territory).
+            cur = coststore.estimate(dec.stage, dec.tier,
+                                     rb.get(dec.tier, ab),
+                                     dec.skeleton, exact_only=True)
+            if cur is None or not cur["warm"]:
+                return
+            for tier in dec.costs:
+                if tier == dec.tier or tier == "device":
+                    # device rivalry needs the RTT added in; only a
+                    # full rebuild models it — skip (conservative)
+                    continue
+                alt = coststore.estimate(dec.stage, tier,
+                                         rb.get(tier, ab),
+                                         dec.skeleton,
+                                         exact_only=True)
+                if alt is not None and alt["warm"] \
+                        and alt["p50_us"] * RIVAL_MARGIN \
+                        < cur["p50_us"]:
+                    self._invalidate(key, "drift")
+                    return
+
+    def _invalidate(self, key: tuple, reason: str) -> None:
+        """Bump the stage key's generation (the decision cache keys on
+        it, so the stale decision becomes unreachable) under the
+        re-plan token bucket."""
+        now = _time.monotonic()
+        with self._lock:
+            tb = self._replan_tokens.get(key)
+            if tb is None:
+                if len(self._replan_tokens) >= MAX_KEYS:
+                    self._replan_tokens.clear()
+                tb = [float(REPLAN_BURST), now]
+                self._replan_tokens[key] = tb
+            tb[0] = min(float(REPLAN_BURST),
+                        tb[0] + (now - tb[1]) / REPLAN_REFILL_S)
+            tb[1] = now
+            if tb[0] < 1.0:
+                self._suppressed += 1
+                suppressed = True
+            else:
+                tb[0] -= 1.0
+                if len(self._versions) >= MAX_KEYS:
+                    self._versions.clear()
+                self._versions[key] = self._versions.get(key, 0) + 1
+                self._reoptimized += 1
+                suppressed = False
+        if suppressed:
+            metrics.inc_counter("planner_replans_suppressed_total")
+        else:
+            metrics.inc_counter("planner_reoptimized_total",
+                                labels={"reason": reason})
+
+    # -- plan-level decisions ------------------------------------------
+
+    def probe_or_scan(self, stage: str, est_probe_rows: int,
+                      n_candidates: int,
+                      probe_tier: str = "compressed") -> str:
+        """Index-probe vs candidate-scan pivot for a filter-context
+        token function: probing costs ~per_row(probe_tier) x estimated
+        postings; scanning verifies each candidate's value
+        (~per_row(postings)). `probe_tier` is the tier the probe would
+        ACTUALLY serve from (the stage's decided tier) — pricing a
+        postings walk with the compressed prior would under-cost it
+        ~50x and pick "probe" exactly where scanning wins biggest.
+        Returns "probe" or "scan"."""
+        fixed_s, per_scan = STATIC_PRIORS.get(
+            (stage, "postings"), (8.0, 0.5))
+        fixed_p, per_probe = STATIC_PRIORS.get(
+            (stage, probe_tier), (4.0, 0.01))
+        scan_us = fixed_s + per_scan * n_candidates
+        probe_us = fixed_p + per_probe * max(0, est_probe_rows)
+        return "scan" if scan_us < probe_us else "probe"
+
+    @staticmethod
+    def gallop_ratio(smallest: int, largest: int) -> int:
+        """Density-driven gallop-vs-merge pivot for k-way
+        intersection (SIMD-intersection paper, PAPERS.md): expected
+        intersection density ~ |smallest|/|largest|. Sparse probes
+        (ratio < 1/256) gallop already from 4x size skew — almost no
+        probe will land, so the vectorized searchsorted beats the
+        concat+sort merge even at modest skew (measured: gallop at
+        9-13x skew runs ~1.3x faster than the 16x-default merge).
+        Denser inputs keep the measured 16x default; holding the
+        merge LONGER than 16x measured 3.5-4.5x slower at 18x skew
+        on the numpy kernels, so there is deliberately no
+        merge-favoring branch."""
+        if largest <= 0 or smallest <= 0:
+            return 16
+        if smallest / largest < 1.0 / 256.0:
+            return 4
+        return 16
+
+    @classmethod
+    def intersect_schedule(cls, lens) -> Optional[tuple[int, ...]]:
+        """Per-FOLD gallop ratios for a k-way intersection over parts
+        of the given lengths — the intersection-ORDER decision beyond
+        the single smallest-vs-largest pivot. The fold order is
+        ascending length (commutative: parity-free); what changes per
+        fold is the accumulator DENSITY: under the independent-draw
+        model |A∩B| ≈ |A|·|B|/U (universe proxied by the largest
+        part), the accumulator shrinks as folds proceed, so late
+        folds against large parts are far sparser than the global
+        smallest/largest ratio suggests and should gallop earlier.
+        Returns len(lens)-1 ratios aligned with setops.intersect_many's
+        ascending fold order, or None for trivial inputs (callers keep
+        the flat-ratio path)."""
+        lens = sorted(int(n) for n in lens)
+        if len(lens) < 3:
+            return None  # single fold: the flat ratio IS the schedule
+        universe = float(max(lens[-1], 1))
+        acc = float(lens[0])
+        ratios = []
+        for n in lens[1:]:
+            # max(.,1): an expected-empty accumulator should gallop
+            # (sparse), not trip gallop_ratio's degenerate-input guard
+            ratios.append(cls.gallop_ratio(max(int(acc), 1), n))
+            # expected accumulator after this fold (never grows)
+            acc = max(0.0, min(acc, acc * n / universe))
+        return tuple(ratios)
+
+    # -- introspection -------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._lock:
+            mix: dict[str, dict[str, int]] = {}
+            for (stage, tier), n in sorted(self._mix.items()):
+                mix.setdefault(stage, {})[tier] = n
+            return {"mode": "adaptive",
+                    "decisions": self._built,
+                    "consults": self._consults,
+                    "warmServes": self._warm_serves,
+                    "mix": mix,
+                    "estimateViolations": self._violations,
+                    "explored": self._explored,
+                    "reoptimized": self._reoptimized,
+                    "replansSuppressed": self._suppressed,
+                    "learnedKeys": len(self._learned),
+                    "versionedKeys": len(self._versions)}

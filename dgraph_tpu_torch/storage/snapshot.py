@@ -188,15 +188,14 @@ def dump_state(db) -> dict:
 
 def restore_state(payload: dict, db=None, device=None):
     """State payload -> GraphDB (by default a fresh one on `device`,
-    None: the card, with the plan cache off, as the port's engine
-    has no query path yet). Refuses payloads stamped NEWER than this
+    None: the card). Refuses payloads stamped NEWER than this
     build understands (typed UnsupportedFormat); unstamped legacy
     payloads are version 0 and restore identically."""
     from dgraph_tpu_torch.engine.db import GraphDB
     from dgraph_tpu_torch.storage.versions import check_format
 
     check_format(payload.get("format_version", 0), "snapshot payload")
-    db = db or GraphDB(plan_cache_size=0, device=device)
+    db = db or GraphDB(device=device)
     db.alter(payload["schema"])
     for pred, st in payload["tablets"].items():
         ps = db.schema.get_or_default(pred)

@@ -12,12 +12,16 @@ and `debug_stats()` are equal apart from the process-global cost tables,
 which hold wall times; `bfs` answers alike with `prefer_device` on and
 off; conflicts and aborts raise the same errors.
 
+The query path's seams (`query`, `query_json`, upsert and conditional
+mutations, the default plan cache, the adaptive planner, sharded
+exports and `split_prune`) run through both engines and give equal
+results (test_lifted_seams_equal_the_reference; the query path itself
+is held in test_torch_query_golden and test_torch_query_paths).
+
 Not yet run by the port, with the slice each waits for (ROADMAP Queue
-1): `query`, `query_json`, upsert and conditional mutations, the plan
-cache, the adaptive planner, sharded exports and `split_prune` (item 7,
-the query path); `mesh` (item 8); `store_dir`, `checkpoint`,
-`result_cache_entries`, `prefetch_workers` (item 9). Each raises
-NotImplementedError naming its slice (test_seams_name_their_slice)."""
+1): `mesh` (item 8); `store_dir`, `checkpoint`, `result_cache_entries`,
+`prefetch_workers` (item 9). Each raises NotImplementedError naming its
+slice (test_seams_name_their_slice)."""
 
 import numpy as np
 import pytest
@@ -338,9 +342,6 @@ def _db():
 
 
 SEAMS = {
-    "plan_cache": (lambda: TDB(device="cpu"), "item 7"),
-    "adaptive": (lambda: TDB(plan_cache_size=0, planner="adaptive",
-                             device="cpu"), "item 7"),
     "mesh": (lambda: TDB(plan_cache_size=0, mesh=object(), device="cpu"),
              "item 8"),
     "store_dir": (lambda: TDB(plan_cache_size=0, store_dir="x",
@@ -349,22 +350,6 @@ SEAMS = {
                                  device="cpu"), "item 9"),
     "prefetch": (lambda: TDB(plan_cache_size=0, prefetch_workers=2,
                              device="cpu"), "item 9"),
-    "query": (lambda: _db().query("{ q(func: has(name)) { name } }"),
-              "item 7"),
-    "query_json": (lambda: _db().query_json("{ q(func: has(name)) { uid } }"),
-                   "item 7"),
-    "upsert": (lambda: _db().mutate(query="{ v as var(func: has(name)) }",
-                                    set_nquads="uid(v) <name> \"x\" ."),
-               "item 7"),
-    "cond": (lambda: _db().mutate(set_nquads='_:a <name> "x" .',
-                                  cond="@if(eq(len(v), 0))"), "item 7"),
-    "cond_in_mutation": (lambda: _db().mutate(mutations=[Mutation(
-        set_nquads='_:a <name> "x" .', cond="@if(eq(len(v), 0))")]),
-        "item 7"),
-    "split_prune": (lambda: _db().apply_record(("split_prune", "name", 2, 0)),
-                    "item 7"),
-    "sharded_export": (lambda: _db().export_tablet_move("name", 2, 0),
-                       "item 7"),
     "checkpoint": (lambda: _db().checkpoint(), "item 9"),
 }
 
@@ -372,28 +357,100 @@ SEAMS = {
 @pytest.mark.parametrize("seam", sorted(SEAMS))
 def test_seams_name_their_slice(seam):
     fn, item = SEAMS[seam]
-    if seam == "sharded_export":
-        db = _db()
-        db.mutate(set_nquads='_:a <name> "x" .')
-        fn = lambda: db.export_tablet_move("name", 2, 0)  # noqa: E731
     with pytest.raises(NotImplementedError, match=item):
         fn()
 
 
-def test_upsert_refused_before_a_timestamp_is_taken():
-    db = _db()
+def _both():
+    """GraphDB as a twin: each call runs on the reference's engine and
+    on the port's (`device="cpu"`), and the results must be equal."""
+    from tests.test_torch_query_paths import Twin
+    return Twin(JDB, TDB, "GraphDB")
+
+
+def _twin_db(**kw):
+    db = _both()(**kw)
+    db.alter("name: string @index(exact) .\nfriend: [uid] .")
+    db.mutate(set_nquads='_:a <name> "x" .\n_:b <name> "y" .\n'
+                         "_:a <friend> _:b .")
+    return db
+
+
+def _split_prune():
+    db = _twin_db()
+    db.apply_record(("split_prune", "name", 2, 0))
+    return (db.export_tablet("name"), sorted(db.split_partial),
+            db.query("{ q(func: has(name)) { uid name } }")["data"])
+
+
+def _sharded_export():
+    db = _twin_db()
+    db.rollup_all(0)
+    return [db.export_tablet_move("name", 2, shard) for shard in (0, 1)]
+
+
+# the query path's seams, each now run through both engines: the call
+# must give the reference's result (or raise its error)
+LIFTED = {
+    "plan_cache": lambda: _twin_db().state()["planCache"],
+    "adaptive": lambda: _both()(plan_cache_size=0, planner="adaptive"),
+    "query": lambda: _twin_db().query("{ q(func: has(name)) { name } }"),
+    "query_json": lambda: _twin_db().query_json(
+        "{ q(func: has(name)) { uid } }"),
+    "upsert": lambda: _twin_db().mutate(
+        query='{ v as var(func: eq(name, "x")) }',
+        set_nquads='uid(v) <name> "z" .'),
+    "cond": lambda: _twin_db().mutate(
+        query='{ v as var(func: eq(name, "q")) }',
+        set_nquads='_:c <name> "w" .', cond="@if(eq(len(v), 0))"),
+    "cond_in_mutation": lambda: _twin_db().mutate(
+        query='{ v as var(func: eq(name, "x")) }',
+        mutations=[Mutation(set_nquads='_:c <name> "w" .',
+                            cond="@if(eq(len(v), 0))"),
+                   Mutation(set_nquads='uid(v) <name> "v" .',
+                            cond="@if(eq(len(v), 1))")]),
+    "split_prune": _split_prune,
+    "sharded_export": _sharded_export,
+}
+
+
+@pytest.mark.parametrize("seam", sorted(LIFTED))
+def test_lifted_seams_equal_the_reference(seam):
+    if seam == "adaptive":
+        # an explicit "adaptive" with no plan cache is the reference's
+        # ValueError; with the default cache it runs
+        with pytest.raises(ValueError, match="needs the plan cache"):
+            LIFTED[seam]()
+        # decisions follow the process-global cost tables, which other
+        # tests fill: both start empty, and exploration (which probes
+        # cold tiers on a wall-time budget) is off, so both planners
+        # decide from the same evidence
+        from dgraph_tpu.utils import coststore as jcost
+        from dgraph_tpu_torch.utils import coststore as tcost
+        jcost.reset()
+        tcost.reset()
+        db = _twin_db(planner="adaptive", planner_explore=False)
+        assert db.planner == "adaptive"
+        db.query('{ q(func: eq(name, "x")) { name } }')
+        db.planner_impl.stats()
+        return
+    LIFTED[seam]()
+
+
+def test_upsert_takes_its_timestamp_like_the_reference():
+    db = _twin_db()
     before = db.coordinator.max_assigned()
-    with pytest.raises(NotImplementedError):
-        db.mutate(query="{ v as var(func: has(name)) }",
-                  set_nquads='uid(v) <name> "x" .')
-    assert db.coordinator.max_assigned() == before
-    assert db.coordinator.min_active_ts() >= before
+    db.mutate(query="{ v as var(func: has(name)) }",
+              set_nquads='uid(v) <name> "x" .')
+    assert db.coordinator.max_assigned() > before
+    assert db.coordinator.min_active_ts() > before
 
 
 def test_planner_auto_resolves_static():
     db = TDB(plan_cache_size=0, device="cpu")
     assert db.planner == "static" and db.planner_impl is None
     assert JDB(plan_cache_size=0).planner == "static"
+    assert TDB(device="cpu").planner == JDB().planner == "adaptive"
     with pytest.raises(ValueError, match="planner must be"):
         TDB(plan_cache_size=0, planner="fast", device="cpu")
 

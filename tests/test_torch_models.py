@@ -349,17 +349,24 @@ def test_keys_token_bytes(token):
 
 def test_metrics_counter_get_counter_and_render():
     """The same updates through both registries render the same
-    exposition lines; `counter` is `get_counter` without labels."""
-    name = "dgraph_num_queries_total"
-    lab = {"tier": 'dev"ice\n'}
+    exposition lines; `counter` is `get_counter` without labels.
+
+    The registries are process-global and other tests' queries write to
+    them, so the test compares only series it alone writes: a counter
+    name no code path increments, and a `case` label on every series,
+    which the exposition filter matches exactly."""
+    name = "torch_models_metrics_case_total"
+    case = {"case": "torch_models"}
+    lab = {"tier": 'dev"ice\n', **case}
     before = (jmet.get_counter(name), tmet.get_counter(name))
     for m in (jmet, tmet):
         m.inc_counter(name)
         m.inc_counter(name, 2.5)
         m.inc_counter(name, 1, labels=lab)
-        m.set_gauge("device_cache_bytes", 123.0, labels={"g": "1"})
-        m.observe("dgraph_query_latency_ms", 3.0, labels={"t": "x"})
-        m.observe("dgraph_wal_fsync_seconds", 0.0003, labels={"t": "x"})
+        m.set_gauge("device_cache_bytes", 123.0, labels={"g": "1", **case})
+        m.observe("dgraph_query_latency_ms", 3.0, labels={"t": "x", **case})
+        m.observe("dgraph_wal_fsync_seconds", 0.0003,
+                  labels={"t": "x", **case})
     assert tmet.get_counter(name) - before[1] == \
         jmet.get_counter(name) - before[0] == 3.5
     assert tmet.counter(name) == tmet.get_counter(name)
@@ -369,9 +376,10 @@ def test_metrics_counter_get_counter_and_render():
     assert tmet.REGISTERED == jmet.REGISTERED
 
     def lines(m):
-        keep = ('tier="dev', 'g="1"', 't="x"')
+        keep = 'case="torch_models"'
         return sorted(ln for ln in m.render_prometheus().splitlines()
-                      if any(k in ln for k in keep))
+                      if keep in ln)
+    assert any('tier="dev\\"ice\\n"' in ln for ln in lines(tmet))
     assert lines(tmet) == lines(jmet) and len(lines(tmet)) > 10
 
 
