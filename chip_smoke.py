@@ -205,6 +205,44 @@ are counted):
    query_device_expand_total and query_device_sssp_total moved, timed
    beside the host path.
 
+The multi-device plane (`parallel/`), on meshes whose entries all name
+the one card (`make_mesh(devices=[cuda:0] * S)`: S logical shards, run
+one after another on its stream), each phase inside the plane whose
+state it reuses:
+
+32. meshes: `make_mesh()` on the machine's cards has a `uid` axis of 1,
+   and an engine on it takes the single-device expand and counts no
+   sharded expand; `make_mesh(devices=[cuda:0] * 8)` is (2, 2, 2);
+33. at the end of the graph-ops plane, on its graph: `build_sharded_
+   adjacency` and `build_ring_adjacency` in 4 shards, their bytes on
+   the card against memory_allocated; `expand_sharded_np` of phase 19's
+   frontiers equal to the numpy union and `graph.expand`; `make_sharded_
+   bfs` and `make_ring_bfs` at depth 3 from phase 20's seed sets equal
+   to numpy_bfs level by level; each timed beside its single-device
+   counterpart and a bytes bound;
+34. `make_dist_query_step` on the (2, 2, 2) mesh over two tablets (the
+   graph's edges and their reverse), a batch of 64 of phase 5's seed
+   sets, with and without page (0, 10): counts and pages equal to a
+   numpy oracle of dense masks over the CSR;
+35. in the vector plane after phase 10: `sharded_topk` over 4 shards of
+   phase 9's corpus launches score_dot 4 times a call, its top-10 equal
+   to the same call with the plain score_dot and to the exact tier
+   (flips within the bound), a keep mask too; `sharded_ivf_topk` on
+   phase 10's index launches score_int8_lists 4 times a call, its ids
+   and scores equal to `ivf.search`'s, with and without a keep mask;
+   each timed beside its single-device counterpart, one shard's
+   launches beside their plain versions and bounds;
+36. after phase 31: the 75 goldens at scale 1 in `GraphDB(device=cuda:0,
+   device_min_edges=1, mesh=<4 x cuda:0>, shard_min_edges=1)`, sharded
+   expands both ways and the fused page on the mesh; the write plane's
+   state restored into a mesh engine (static planner): its sharded
+   tiles charged to the byte and evicted under half that budget, the 75
+   goldens and phase 31's @recurse equal to the single-device engine,
+   similar_to on the sharded_quantized tier (one score_int8_lists launch
+   a shard whose slot range meets a probed list, answers equal to phase
+   29's) and the sharded tier (4 score_dot launches a request), p50 and
+   p99 of each.
+
 The planes run in the order BFS, graph ops, write path and queries, set
 algebra, vectors. Each
 figure is printed beside the card's name and power limit. Then one
@@ -1044,6 +1082,7 @@ def graph_plane(dev, card: str) -> None:
     # -- 19. expand --------------------------------------------------------
     rng = np.random.default_rng(19)
     mask_duals = 0
+    fronts = []
     for f_n in EXPAND_FRONTIERS:
         fr = np.sort(rng.choice(uniq_src, f_n, replace=False))
         size = pad_to(f_n)
@@ -1054,6 +1093,7 @@ def graph_plane(dev, card: str) -> None:
         if not np.array_equal(got, want[:out].astype(np.uint32)):
             raise AssertionError(f"expand of {f_n} sources != the numpy "
                                  f"union of their CSR rows")
+        fronts.append((fr, got))
         duals = sum(size > b.src.shape[0] for b in adj.buckets)
         mask_duals += duals
         gathered = sum(min(b.src.shape[0], size) * b.degree
@@ -1274,9 +1314,673 @@ def graph_plane(dev, card: str) -> None:
             f"{ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms (bytes: each "
             f"candidate, leaf rank, mask byte and order rank read once) | "
             f"{card}")
-    GRAPH.clear()
     log(f"graph ops: peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB | {card}")
+    mesh_graph_phases(dev, card, g, adj, fronts)
+    GRAPH.clear()
+
+
+# -- the multi-device plane (phases 32-36) ----------------------------------
+
+# logical shards on the one card: S entries of cuda:0 in a mesh, as the
+# reference's tests run theirs on 8 forced virtual host devices
+MESH_SHARDS = 4
+MESH_GRID = 8                      # phase 34's (data, tablet, uid) = (2, 2, 2)
+MESH_BATCH = 64                    # phase 34's seed sets
+MESH_PAGE = (0, 10)
+MESH_REPS = 3
+
+
+def mesh_of(dev, n: int, axes=("uid",)):
+    from dgraph_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[dev] * n, axes=axes)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean ms of one call of `fn` by the host clock, each call ended by
+    a synchronize (one warm-up first): for paths whose boolean gathers
+    wait on the card anyway."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sharded_expand_bytes(host_adj, frontier: np.ndarray, out: int) -> int:
+    """Bytes a sharded expand of `frontier` must move: every shard's
+    source rows read once (the membership scan), the neighbour slots of
+    the rows the frontier hits, the frontier and the output, 8 B each."""
+    rows = slots = 0
+    for b in host_adj.buckets:
+        rows += b.src.size
+        slots += int(np.isin(b.src, frontier).sum()) * b.degree
+    return (rows + slots + len(frontier) + out) * 8
+
+
+def mesh_graph_phases(dev, card: str, g: dict, adj, fronts) -> None:
+    """Phases 32-34: meshes, the sharded graph and the distributed query
+    step on the BFS plane's graph (its CSR, dict and seed sets),
+    `fronts` being phase 19's frontiers with their single-device
+    expands."""
+    from dgraph_tpu_torch.bench import bfs
+    from dgraph_tpu_torch.bench.setops import sorted_unique
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.ops import graph, traverse
+    from dgraph_tpu_torch.ops.uidvec import SENTINEL, from_numpy, pad_to
+    from dgraph_tpu_torch.parallel import dist_graph as dg
+    from dgraph_tpu_torch.parallel import dist_query as dq
+    from dgraph_tpu_torch.parallel import make_mesh
+    from dgraph_tpu_torch.utils import metrics
+
+    csr = g["csr"]
+    uniq_src, indptr, dst = csr
+    t_plane = time.perf_counter()
+
+    # -- 32. meshes ----------------------------------------------------------
+    cards = make_mesh()
+    grid = mesh_of(dev, MESH_GRID, ("data", "tablet", "uid"))
+    if cards.shape["uid"] != torch.cuda.device_count() or \
+            tuple(grid.shape.values()) != (2, 2, 2):
+        raise AssertionError(f"meshes: {cards}, {grid}")
+    small = GraphDB(device=dev, device_min_edges=1, mesh=cards,
+                    shard_min_edges=1, plan_cache_size=0)
+    small.alter("follows: [uid] .")
+    rows = min(512, len(uniq_src))
+    small.mutate(set_nquads="\n".join(
+        f"<{int(s):#x}> <follows> <{int(d):#x}> ."
+        for i, s in enumerate(uniq_src[:rows])
+        for d in dst[indptr[i]:indptr[i + 1]][:16]))
+    small.rollup_all(0)
+    before = metrics.counters_snapshot()
+    small.query("{ q(func: uid(%s)) { follows { uid } } }" % ", ".join(
+        f"{int(s):#x}" for s in uniq_src[:8]))
+    moved = metrics.counters_delta(before)
+    if any(k.startswith("query_sharded_expand_total") for k in moved) or \
+            moved.get('query_device_expand_total{dir="fwd"}', 0) <= 0:
+        raise AssertionError(f"an engine on make_mesh()'s uid axis of "
+                             f"{cards.shape['uid']} moved {moved}")
+    log(f"meshes: make_mesh() on the machine's cards {dict(cards.shape)}; "
+        f"GraphDB(mesh=that, shard_min_edges=1) took the single-device "
+        f"expand and counted no sharded expand; make_mesh(devices=[cuda:0] "
+        f"* {MESH_GRID}) {dict(grid.shape)} | {card}")
+    del small
+
+    # -- 33. sharded graph ---------------------------------------------------
+    mesh = mesh_of(dev, MESH_SHARDS)
+    built = {}
+    for name, build in (("sharded", dg.build_sharded_adjacency),
+                        ("ring", dg.build_ring_adjacency)):
+        t0 = time.perf_counter()
+        host = build(g["edges"], MESH_SHARDS)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        placed = host.put(mesh)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated(dev) - mem0
+        nbytes, alloc = tile_alloc(placed)
+        if not nbytes <= grew <= alloc or placed.n_edges != len(dst) or \
+                placed.n_dst != adj.n_dst:
+            raise AssertionError(f"{name} adjacency: {placed.n_edges} "
+                                 f"edges, {placed.n_dst} destinations, "
+                                 f"{nbytes} bytes, allocated {grew}")
+        built[name] = (host, placed)
+        per_shard = [sum(int((b.src[i] != SENTINEL).sum())
+                         for b in host.buckets) for i in range(MESH_SHARDS)]
+        log(f"{name} adjacency of {len(uniq_src)} sources, {placed.n_edges}"
+            f" edges in {MESH_SHARDS} shards: built in {build_s:.2f} s on "
+            f"the host, {len(host.buckets)} buckets, sources a shard "
+            f"{per_shard}; {nbytes / 2**30:.3f} GiB of int64 tensors on the "
+            f"card, memory_allocated grew {grew} bytes (512-byte blocks "
+            f"{alloc}) | {card}")
+    host_s, sadj = built["sharded"]
+    host_r, radj = built["ring"]
+    out_size = pad_to(max(sadj.n_dst, 1))
+    expand = dg.make_sharded_expand(mesh, sadj, out_size)
+    for fr, single in fronts:
+        got = dg.expand_sharded_np(mesh, sadj, fr.astype(np.uint64))
+        want = csr_union(csr, fr, sorted_unique)
+        if not (np.array_equal(got, want) and
+                np.array_equal(got.astype(np.uint32), single)):
+            raise AssertionError(f"sharded expand of {len(fr)} sources != "
+                                 f"the numpy union and graph.expand")
+        ft = from_numpy(fr.astype(np.uint32), pad_to(len(fr)), device=dev)
+        out = graph.max_expansion(adj, pad_to(len(fr)))
+        sh_ms = host_ms(lambda: expand(ft), MESH_REPS)
+        one_ms = host_ms(lambda: graph.expand(adj, ft, out), MESH_REPS)
+        b_ms = bound_ms(sharded_expand_bytes(host_s, fr, out_size))
+        log(f"sharded expand of {len(fr)} sources over {MESH_SHARDS} shards:"
+            f" {len(got)} uids = numpy union = graph.expand; {sh_ms:.3f} ms"
+            f" a call against the single-device expand's {one_ms:.3f} ms "
+            f"(host clock after synchronize; ratio {sh_ms / one_ms:.2f}), "
+            f"bound {b_ms:.4f} ms (bytes: the shards' source rows, the hit "
+            f"rows' neighbour slots, frontier and output, 8 B each) | "
+            f"{card}")
+
+    seeds, want_levels = g["reach"]
+    depth = bfs.DEPTH
+    sbfs = dg.make_sharded_bfs(mesh, sadj, 8, depth, out_size)
+    block = pad_to(radj.n_dst + 8)
+    rbfs = dg.make_ring_bfs(mesh, radj, 8, depth, block)
+    per = -(-radj.space // MESH_SHARDS)
+    for q, (s, want) in enumerate(zip(seeds, want_levels)):
+        sv = from_numpy(s.astype(np.uint32), 8, device=dev)
+        levels, n_last = sbfs(sv)
+        rows_ = np.full((MESH_SHARDS, 8), SENTINEL, np.int64)
+        for u in s:
+            home = min(int(u) // per, MESH_SHARDS - 1)
+            rows_[home, int((rows_[home] != SENTINEL).sum())] = int(u)
+        ring_in = torch.from_numpy(np.sort(rows_, axis=1)).to(dev)
+        rlevels, r_last = rbfs(ring_in)
+        for lvl in range(depth):
+            w = want[lvl].astype(np.int64)
+            a = levels[lvl].cpu().numpy()
+            b = rlevels[lvl].cpu().numpy().reshape(-1)
+            if not (np.array_equal(a[a != SENTINEL], w) and
+                    np.array_equal(np.sort(b[b != SENTINEL]), w)):
+                raise AssertionError(f"seed set {q} level {lvl + 1}: "
+                                     f"sharded or ring BFS != numpy_bfs")
+        if int(n_last) != len(want[-1]) or int(r_last) != len(want[-1]):
+            raise AssertionError(f"seed set {q}: reached counts "
+                                 f"{int(n_last)}, {int(r_last)} != "
+                                 f"{len(want[-1])}")
+    sv = from_numpy(seeds[0].astype(np.uint32), 8, device=dev)
+    single = traverse.make_bfs(adj, 8, depth)
+    one_ms = host_ms(lambda: single(sv), MESH_REPS)
+    sb_ms = host_ms(lambda: sbfs(sv), MESH_REPS)
+    rb_ms = host_ms(lambda: rbfs(ring_in), MESH_REPS)
+    fronts0 = [seeds[0]] + [x for x in want_levels[0][:-1]]
+    bfs_b = sum(sharded_expand_bytes(host_s, f.astype(np.int64), out_size)
+                for f in fronts0)
+    log(f"sharded and ring BFS depth {depth} over {MESH_SHARDS} shards from "
+        f"{len(seeds)} seed sets: every level = numpy_bfs (level sizes "
+        f"{[len(x) for x in want_levels[0]]} for set 0; ring block "
+        f"{block}); set 0: sharded {sb_ms:.3f} ms, ring {rb_ms:.3f} ms, "
+        f"single-device make_bfs {one_ms:.3f} ms (host clock after "
+        f"synchronize; ratios {sb_ms / one_ms:.2f}, {rb_ms / one_ms:.2f}), "
+        f"bound {bound_ms(bfs_b):.4f} ms (bytes: each level's sharded "
+        f"expand as above) | {card}")
+    del built, host_s, sadj, host_r, radj, expand, sbfs, rbfs, single
+    torch.cuda.empty_cache()
+
+    # -- 34. distributed query step ------------------------------------------
+    t0 = time.perf_counter()
+    src_of = np.repeat(uniq_src, np.diff(indptr)).astype(np.int64)
+    dst64 = dst.astype(np.int64)
+    order = np.argsort(dst64, kind="stable")
+    rdst, rsrc = dst64[order], src_of[order]
+    cut = np.flatnonzero(np.diff(rdst)) + 1
+    reverse = dict(zip(rdst[np.concatenate([[0], cut])].tolist(),
+                       np.split(rsrc.astype(np.uint32), cut)))
+    stack = dq.stack_tablets([g["edges"], reverse], grid.shape["uid"])
+    stack_s = time.perf_counter() - t0
+    del reverse
+    raw = bfs.seed_matrices(uniq_src, 1, MESH_BATCH)
+    seed_rows = np.full((MESH_BATCH, bfs.SEEDS), SENTINEL, np.int64)
+    for b in range(MESH_BATCH):
+        u = np.unique(raw[b])
+        seed_rows[b, :len(u)] = u
+    seeds_t = torch.from_numpy(seed_rows).to(dev)
+    # the oracle: dense masks over the CSR, both directions
+    n_uid = int(max(uniq_src.max(), dst.max())) + 1
+
+    def hop(mask):
+        out = np.zeros(n_uid, bool)
+        out[dst64[mask[src_of]]] = True
+        out[src_of[mask[dst64]]] = True
+        return out
+
+    t0 = time.perf_counter()
+    want_n, want_pg = [], []
+    for b in range(MESH_BATCH):
+        m = np.zeros(n_uid, bool)
+        m[seed_rows[b][seed_rows[b] != SENTINEL]] = True
+        h1 = hop(m)
+        both = np.flatnonzero(hop(h1) & h1)
+        want_n.append(len(both))
+        pg = np.full(MESH_PAGE[1], SENTINEL, np.int64)
+        page = both[MESH_PAGE[0]:MESH_PAGE[0] + MESH_PAGE[1]]
+        pg[:len(page)] = page
+        want_pg.append(pg)
+    oracle_s = time.perf_counter() - t0
+    step = dq.make_dist_query_step(grid, stack, MESH_BATCH, bfs.SEEDS)
+    paged = dq.make_dist_query_step(grid, stack, MESH_BATCH, bfs.SEEDS,
+                                    page=MESH_PAGE)
+    t0 = time.perf_counter()
+    counts = step(seeds_t)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts2, pages = paged(seeds_t)
+    torch.cuda.synchronize()
+    paged_s = time.perf_counter() - t0
+    if not (np.array_equal(counts.cpu().numpy(), want_n) and
+            np.array_equal(counts2.cpu().numpy(), want_n) and
+            np.array_equal(pages.cpu().numpy(), np.stack(want_pg))):
+        raise AssertionError("distributed query step: counts or pages != "
+                             "the numpy oracle")
+    log(f"distributed query step on the {dict(grid.shape)} mesh, tablets "
+        f"= the graph's edges and their reverse (level cap "
+        f"{stack.level_cap}; stacked in {stack_s:.1f} s on the host), "
+        f"batch {MESH_BATCH} of phase 5's seed sets: counts |2-hop ∩ "
+        f"1-hop| (median {int(np.median(want_n))}, max {max(want_n)}) and "
+        f"the page {MESH_PAGE} = the numpy oracle ({oracle_s:.1f} s); "
+        f"{step_s * 1e3 / MESH_BATCH:.2f} ms a query, paged "
+        f"{paged_s * 1e3 / MESH_BATCH:.2f} ms (host clock, synchronized) "
+        f"| {card}")
+    log(f"multi-device graph phases 32-34: "
+        f"{time.perf_counter() - t_plane:.1f} s | {card}")
+
+
+def busy_shards(ix, lists: np.ndarray, shards: int) -> int:
+    """Shards whose clustered-slot range meets a probed non-empty list:
+    the launches of one sharded quantized stage (a shard with none
+    launches nothing)."""
+    li = np.unique(lists)
+    per = -(-ix.n_rows // shards)
+    return sum(bool((np.maximum(i * per, ix.starts[li]) <
+                     np.minimum(min(ix.n_rows, (i + 1) * per),
+                                ix.starts[li + 1])).any())
+               for i in range(shards))
+
+
+def probed_lists(ivf, ix, qs, nprobe, metric) -> np.ndarray:
+    q_t = torch.from_numpy(np.ascontiguousarray(np.atleast_2d(qs),
+                                                np.float32)).to(ix.device)
+    return ivf._probe(q_t, ix.centroids_dev, nprobe, metric)[1].cpu().numpy()
+
+
+def mesh_kernel_entries(kernels, dev, card, label, path, dot_call,
+                        dot_launches, lists_call, lists_launches
+                        ) -> list[dict]:
+    """The kernels line's entries of score_dot and score_int8_lists on a
+    sharded path, timed at one shard's launch (`dot_call`: (rows,
+    queries); `lists_call`: (codes, queries, table, out, kw))."""
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    rows, qv = dot_call
+    dot_ms = device_ms_cold(lambda: kernels.score_dot(rows, qv), 20, flush)
+    dot_plain = device_ms_cold(
+        lambda: kernels.score_dot_reference(rows, qv), 20, flush)
+    lib_ms = device_ms_cold(lambda: torch.matmul(qv, rows.T), 20, flush)
+    derr, dratio = check_score(kernels.score_dot, kernels.score_dot_reference,
+                               rows, qv, f"score_dot, {label}")
+    dot_bound, dot_by = score_bound_ms([(rows, qv)])
+    codes, qs, table, out, kw = lists_call
+    int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
+        codes, qs, table, out, **kw), 20, flush)
+    plain_out = torch.empty_like(out)
+    int8_plain = cuda_ms(lambda: kernels.score_int8_lists_reference(
+        codes, qs, table, plain_out, **kw), 3)
+    ierr, iratio = lists_within_bound(codes, qs, table, out, plain_out, kw,
+                                      f"score_int8_lists, {label}")
+    int8_bound, int8_by = lists_bound_ms(codes, qs, table)
+    del flush
+    log(f"  {label}, one shard's launches: score_dot ({qv.shape[0]} x "
+        f"{rows.shape[0]} x {rows.shape[1]}, worst error/bound "
+        f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f} ms, "
+        f"torch.matmul {lib_ms:.4f} ms, bound {dot_bound:.4f} ms ({dot_by}); "
+        f"score_int8_lists ({len(table)} entries, worst error/bound "
+        f"{iratio:.4g}) {int8_ms:.4f} ms, plain {int8_plain:.4f} ms, bound "
+        f"{int8_bound:.4f} ms ({int8_by}) (device times from a flushed L2, "
+        f"CUDA events) | {card}")
+    return [
+        {"name": "score_dot", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/score.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123",
+         "path": f"{path[0]} ({MESH_SHARDS} logical shards on one card)",
+         "launches": dot_launches, "max_abs_err": derr, "ms": dot_ms,
+         "plain_ms": dot_plain, "bound_ms": dot_bound, "bound_by": dot_by,
+         "library_ms": lib_ms},
+        {"name": "score_int8_lists", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/score.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:158",
+         "path": f"{path[1]} ({MESH_SHARDS} logical shards on one card)",
+         "launches": lists_launches, "max_abs_err": ierr, "ms": int8_ms,
+         "plain_ms": int8_plain, "bound_ms": int8_bound, "bound_by": int8_by,
+         "library_ms": None}]
+
+
+def mesh_vector_phase(dev, card: str, corpus, queries, exact_idx, ix,
+                      tol: float) -> list[dict]:
+    """Phase 35: sharded similar_to at the vector plane's 1M x 128, on
+    phase 9's corpus and phase 10's index."""
+    from dgraph_tpu_torch.ops import ivf, kernels, knn
+    from dgraph_tpu_torch.parallel import dist_knn as dk
+
+    t_phase = time.perf_counter()
+    mesh = mesh_of(dev, MESH_SHARDS)
+    block, n_real = dk.shard_corpus(mesh, corpus)
+
+    def exact(mask=None):
+        return dk.sharded_topk(mesh, block, queries, VEC_K, VEC_METRIC,
+                               mask=mask, n_real=n_real)
+
+    calls = MESH_REPS + 1
+    exact()                                             # warm
+    kernels.score_dot.launches = 0
+    for _ in range(calls):
+        got_i, _ = exact()
+    dot_launches = kernels.score_dot.launches
+    if dot_launches != MESH_SHARDS * calls:
+        raise AssertionError(f"sharded_topk launched score_dot "
+                             f"{dot_launches} times in {calls} calls")
+    knn.score_dot = kernels.score_dot_reference
+    try:
+        plain_i, _ = exact()
+    finally:
+        knn.score_dot = kernels.score_dot
+    p_flips = same_topk("sharded_topk vs plain", got_i, plain_i, corpus,
+                        queries, VEC_METRIC, tol)
+    e_flips = same_topk("sharded_topk vs the exact tier", got_i, exact_idx,
+                        corpus, queries, VEC_METRIC, tol)
+    keep = np.random.default_rng(35).random(len(corpus)) > 0.5
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    keep_i, _ = exact(keep)
+    want_k, _ = knn.topk_device(corpus_dev, queries, VEC_K, VEC_METRIC,
+                                mask=keep, two_stage=False)
+    k_flips = same_topk("sharded_topk vs the exact tier, keep mask", keep_i,
+                        want_k, corpus, queries, VEC_METRIC, tol)
+    if not keep[keep_i].all():
+        raise AssertionError("sharded_topk returned a masked row")
+    sh_ms = host_ms(exact, MESH_REPS)
+    one_ms = host_ms(lambda: knn.topk_device(
+        corpus_dev, queries, VEC_K, VEC_METRIC, two_stage=False), MESH_REPS)
+    log(f"sharded_topk over {MESH_SHARDS} shards of {block[0].shape[0]} rows"
+        f" (batch {len(queries)}, k {VEC_K}, {VEC_METRIC}): score_dot launched "
+        f"{dot_launches} times in {calls} calls; top-{VEC_K} = the plain "
+        f"score_dot's ({p_flips} flips) = the exact tier's ({e_flips} "
+        f"flips), keep mask = the exact tier's ({k_flips} flips), all "
+        f"within {tol:.3g}; {sh_ms:.3f} ms a call against the single-device"
+        f" exact tier's {one_ms:.3f} ms (host clock after synchronize; "
+        f"ratio {sh_ms / one_ms:.2f}) | {card}")
+    del corpus_dev
+
+    tables = []
+
+    def recorded(codes, qs, table, out, **kw):
+        tables.append((codes, qs, table, out, kw))
+        return kernels.score_int8_lists(codes, qs, table, out, **kw)
+
+    def quant(keep_=None):
+        return dk.sharded_ivf_topk(mesh, ix, corpus, queries, VEC_K,
+                                   VEC_METRIC, keep=keep_)
+
+    busy = busy_shards(ix, probed_lists(ivf, ix, queries, ix.nprobe,
+                                        VEC_METRIC), MESH_SHARDS)
+    ivf.score_int8_lists = recorded
+    try:
+        quant()                                         # warm
+        kernels.score_int8.launches = 0
+        for _ in range(calls):
+            qi_, qs_ = quant()
+        int8_launches = kernels.score_int8.launches
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+    if int8_launches != busy * calls or busy != MESH_SHARDS:
+        raise AssertionError(f"sharded_ivf_topk launched score_int8_lists "
+                             f"{int8_launches} times in {calls} calls over "
+                             f"{busy} busy shards")
+    wi, ws = ivf.search(ix, corpus, queries, VEC_K, VEC_METRIC)
+    ki, ks = quant(keep)
+    kwi, kws = ivf.search(ix, corpus, queries, VEC_K, VEC_METRIC, keep=keep)
+    if not (np.array_equal(qi_, wi) and np.array_equal(qs_, ws) and
+            np.array_equal(ki, kwi) and np.array_equal(ks, kws)):
+        raise AssertionError("sharded_ivf_topk != ivf.search")
+    sq_ms = host_ms(quant, MESH_REPS)
+    oq_ms = host_ms(lambda: ivf.search(ix, corpus, queries, VEC_K,
+                                       VEC_METRIC), MESH_REPS)
+    log(f"sharded_ivf_topk over {MESH_SHARDS} slot ranges (nprobe "
+        f"{ix.nprobe}): score_int8_lists launched {int8_launches} times in "
+        f"{calls} calls, one a shard; ids and scores = ivf.search's, with "
+        f"and without a keep mask; {sq_ms:.3f} ms a call against "
+        f"ivf.search's {oq_ms:.3f} ms (host clock after synchronize; ratio "
+        f"{sq_ms / oq_ms:.2f}) | {card}")
+    q_dev = torch.from_numpy(queries).to(dev)
+    entries = mesh_kernel_entries(
+        kernels, dev, card, "phase 35", (
+            "parallel.dist_knn.sharded_topk",
+            "parallel.dist_knn.sharded_ivf_topk"),
+        (block[0], q_dev), dot_launches, tables[-1], int8_launches)
+    log(f"sharded similar_to phase 35: {time.perf_counter() - t_phase:.1f} "
+        f"s | {card}")
+    return entries
+
+
+def recurse_roots(db):
+    """Phase 31's seeded films (the first draw of its generator), and the
+    generator for its shortest pairs."""
+    rng = np.random.default_rng(31)
+    films = np.asarray(sorted(db.tablets["starring"].edges), np.int64)
+    return rng, films, rng.choice(films, RECURSE_ROOTS, replace=False)
+
+
+def mesh_engine_phase(dev, card: str, db, golden, state: dict,
+                      single_quant: list, lits: list, root_q: str
+                      ) -> list[dict]:
+    """Phase 36: GraphDB(mesh=...) on the card: the goldens at scale 1
+    and, on the write plane's state, at scale 10 with @recurse and
+    similar_to on both sharded tiers; the sharded tiles' budget."""
+    from dgraph_tpu_torch import wire
+    from dgraph_tpu_torch.engine import device_cache as dc
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.ops import ivf, kernels, knn
+    from dgraph_tpu_torch.storage import snapshot
+    from dgraph_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    mesh = mesh_of(dev, MESH_SHARDS)
+    sharded = ('query_sharded_expand_total{dir="fwd"}',
+               'query_sharded_expand_total{dir="rev"}')
+
+    # scale 1, every predicate sharded, every device tier forced
+    schema1, lines1 = golden_dataset().generate(1)
+    gdb = GraphDB(device=dev, device_min_edges=1, mesh=mesh,
+                  shard_min_edges=1)
+    gdb.alter(schema_text=schema1)
+    gdb.mutate(set_nquads="\n".join(lines1))
+    before = metrics.counters_snapshot()
+    t0 = time.perf_counter()
+    bad = [name for name, text, want in golden
+           if not json_close(gdb.query(text)["data"], want)]
+    g1_s = time.perf_counter() - t0
+    moved = metrics.counters_delta(before)
+    if bad or any(moved.get(c, 0) <= 0 for c in
+                  sharded + ("query_fused_dispatch_total",)):
+        raise AssertionError(f"mesh engine at scale 1: drifted {bad}, "
+                             f"counters {moved}")
+    log(f"mesh engine at scale 1: GraphDB(device=cuda:0, device_min_edges=1,"
+        f" mesh={dict(mesh.shape)} of cuda:0, shard_min_edges=1), all "
+        f"{len(golden)} goldens equal tests/golden/expected in {g1_s:.2f} s;"
+        f" sharded expands fwd {moved[sharded[0]]:g} rev "
+        f"{moved[sharded[1]]:g}, fused pages through the mesh's executable "
+        f"{moved['query_fused_dispatch_total']:g} | {card}")
+    del gdb
+
+    # scale 10: the write plane's state in a mesh engine
+    t0 = time.perf_counter()
+    mdb = snapshot.restore_state(
+        wire.loads(wire.dumps(snapshot.dump_state(db))),
+        GraphDB(device=dev, plan_cache_size=0, planner="static", mesh=mesh,
+                shard_min_edges=1, vec_index_min_rows=WRITE_VECS // 2), dev)
+    restore_s = time.perf_counter() - t0
+
+    # the sharded tiles, charged to the byte, then evicted under budget
+    ts = mdb.coordinator.max_assigned()
+    uid_preds = sorted(p for p, t in mdb.tablets.items() if t.is_uid)
+    builds = [(False, p) for p in uid_preds if mdb.tablets[p].edges] + \
+        [(True, p) for p in uid_preds
+         if mdb.tablets[p].schema.reverse and mdb.tablets[p].reverse]
+    if mdb.device_cache.bytes:
+        raise AssertionError("tiles resident in a restored engine")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    tiles = {}
+    for rev, p in builds:
+        tiles[(rev, p)] = dc.device_sharded_adjacency(
+            mdb, mdb.tablets[p], ts, reverse=rev)
+        if tiles[(rev, p)] is None:
+            raise AssertionError(f"no sharded tile for {p} (reverse {rev})")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(dev)
+    sizes = {k: tile_alloc(v) for k, v in tiles.items()}
+    tensor_bytes = sum(s[0] for s in sizes.values())
+    alloc_bytes = sum(s[1] for s in sizes.values())
+    if mdb.device_cache.bytes != tensor_bytes or \
+            not tensor_bytes <= mem1 - mem0 <= alloc_bytes:
+        raise AssertionError(f"sharded tiles: charged "
+                             f"{mdb.device_cache.bytes}, hold {tensor_bytes},"
+                             f" memory_allocated grew {mem1 - mem0}")
+    order = list(tiles)
+    del tiles
+    budget = mdb.device_cache.budget
+    mdb.device_cache.budget = tensor_bytes // 2
+    gone_before = set(mdb.device_cache._entries)
+    torch.cuda.synchronize()
+    mem_a = torch.cuda.memory_allocated(dev)
+    extra = dc.device_bitadjacency(mdb, mdb.tablets["genre"], ts)
+    extra_alloc = tile_alloc(extra)[1]
+    del extra
+    torch.cuda.synchronize()
+    freed = mem_a + extra_alloc - torch.cuda.memory_allocated(dev)
+    gone = gone_before - set(mdb.device_cache._entries)
+    attr = {False: "_device_sadj", True: "_device_sadj_r"}
+    named = [(rev, p) for rev, p in order
+             if (id(mdb.tablets[p]), attr[rev]) in gone]
+    if not named or named != order[:len(named)] or any(
+            getattr(mdb.tablets[p], attr[rev]) is not None
+            for rev, p in named) or not \
+            sum(sizes[k][0] for k in named) <= freed <= \
+            sum(sizes[k][1] for k in named):
+        raise AssertionError(f"sharded tiles under budget "
+                             f"{tensor_bytes // 2}: evicted {named}, freed "
+                             f"{freed}")
+    mdb.device_cache.budget = budget
+    log(f"mesh engine at scale {GOLDEN_SCALE}: the write plane's state "
+        f"restored into GraphDB(mesh={dict(mesh.shape)}, shard_min_edges=1,"
+        f" planner static) in {restore_s:.1f} s; {len(order)} sharded tiles "
+        f"({len(uid_preds)} predicates and their reverses) charged "
+        f"{tensor_bytes} bytes = their tensors', memory_allocated grew "
+        f"{mem1 - mem0} (512-byte blocks {alloc_bytes}); under half that "
+        f"budget one more tile evicted the {len(named)} oldest and freed "
+        f"{freed} bytes on the card | {card}")
+
+    # the goldens and @recurse against the single-device engine
+    before = metrics.counters_snapshot()
+    rows = []
+    for name, text, _ in golden:
+        if mdb.query(text)["data"] != db.query(text)["data"]:
+            raise AssertionError(f"{name} at scale {GOLDEN_SCALE}: mesh "
+                                 f"engine != single-device engine")
+        mesh_ms = median_ms(lambda: mdb.query(text), QUERY_REPS)
+        one_ms = median_ms(lambda: db.query(text), QUERY_REPS)
+        rows.append((mesh_ms, one_ms))
+    _, _, roots = recurse_roots(db)
+    for r in roots:
+        text = RECURSE_Q % int(r)
+        if mdb.query(text)["data"] != db.query(text)["data"]:
+            raise AssertionError(f"@recurse from {int(r):#x}: mesh engine "
+                                 f"!= single-device engine")
+    moved = metrics.counters_delta(before)
+    if any(moved.get(c, 0) <= 0 for c in sharded):
+        raise AssertionError(f"mesh engine at scale {GOLDEN_SCALE}: "
+                             f"counters {moved}")
+    r = np.asarray(rows)
+    log(f"mesh engine at scale {GOLDEN_SCALE}: all {len(golden)} goldens and"
+        f" @recurse from phase 31's {len(roots)} films equal the "
+        f"single-device engine's data; sharded expands fwd "
+        f"{moved[sharded[0]]:g} rev {moved[sharded[1]]:g}; sums of warm "
+        f"medians of {QUERY_REPS} runs {r[:, 0].sum():.3f} ms on the mesh "
+        f"engine, {r[:, 1].sum():.3f} ms single-device (host clock) | "
+        f"{card}")
+
+    # similar_to on both sharded tiers
+    ix = mdb.tablets["embedding"].vector_ivf()
+    if ix is None or ix.device != dev:
+        raise AssertionError("the restored engine lost the index")
+    nprobe = min(ix.nlist, int(mdb.vec_nprobe or ix.nprobe))
+    last = {}
+
+    def recorded(fn, key):
+        def run(*args, **kw):
+            last[key] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    vecs, queries = state["vecs"], state["queries"]
+    tol = (WRITE_DIM + 4) * 2.0 ** -24
+    lat = {"sharded_quantized": [], "sharded": []}
+    launched = {"sharded_quantized": 0, "sharded": 0}
+    full = 0
+    host_idx, _ = knn.topk_host(vecs, queries, SIMILAR_K, VEC_METRIC)
+    exact_rows = []
+    ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
+    knn.score_dot = recorded(kernels.score_dot, "dot")
+    try:
+        for tier, quantized in (("sharded_quantized", True),
+                                ("sharded", False)):
+            mdb.vec_quantized = quantized
+            for i, lit in enumerate(lits):
+                text = root_q % (SIMILAR_K, lit)
+                want_l = busy_shards(ix, probed_lists(
+                    ivf, ix, queries[i], nprobe, VEC_METRIC),
+                    MESH_SHARDS) if quantized else MESH_SHARDS
+                reset_launches(kernels)
+                t0 = time.perf_counter()
+                res = mdb.query(text, explain="analyze" if i == 0 else None)
+                lat[tier].append((time.perf_counter() - t0) * 1e3)
+                only_launched(f"{tier} request {i}", launches_of(kernels),
+                              "score_int8" if quantized else "score_dot",
+                              want_l)
+                launched[tier] += want_l
+                full += quantized and want_l == MESH_SHARDS
+                if i == 0:
+                    vd = res["extensions"]["explain"]["tiers"]["vector"]
+                    if not vd or vd[0]["tier"] != tier:
+                        raise AssertionError(f"EXPLAIN tier {vd}")
+                out = res["data"]["q"]
+                if quantized and out != single_quant[i]:
+                    raise AssertionError(f"sharded_quantized request {i} "
+                                         f"!= the single-device engine's")
+                if not quantized:
+                    exact_rows.append([int(x["uid"], 16) - VEC_UID0
+                                       for x in out])
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+        knn.score_dot = kernels.score_dot
+        mdb.vec_quantized = True
+    flips = same_topk("sharded tier vs float64 topk_host",
+                      np.asarray(exact_rows, np.int64), host_idx, vecs,
+                      queries, VEC_METRIC, tol)
+    log(f"similar_to on the mesh engine, {len(lits)} requests a tier on the "
+        f"{WRITE_VECS} x {WRITE_DIM} embeddings: sharded_quantized (nprobe "
+        f"{nprobe}) launched score_int8_lists once a shard whose slot range "
+        f"meets a probed list ({launched['sharded_quantized']} in all; "
+        f"{full} of {len(lits)} requests on all {MESH_SHARDS} shards), "
+        f"answers = the single-device engine's; sharded (vec_quantized="
+        f"False) launched score_dot {MESH_SHARDS} times a request, top-"
+        f"{SIMILAR_K} = float64 topk_host ({flips} flips within {tol:.3g}) "
+        f"| {card}")
+    for tier, ms in lat.items():
+        log(f"  {tier} tier, single request latency (host clock): p50 "
+            f"{pct(ms, 50):.3f} ms, p99 {pct(ms, 99):.3f} ms | {card}")
+    (codes, qs, table, out), kw = last["int8"]
+    (rows_, qv), _ = last["dot"]
+    entries = mesh_kernel_entries(
+        kernels, dev, card, "phase 36, a request", (
+            "GraphDB(mesh).query -> similar_to sharded tier -> "
+            "parallel.dist_knn.sharded_topk",
+            "GraphDB(mesh).query -> similar_to sharded_quantized tier -> "
+            "parallel.dist_knn.sharded_ivf_topk"),
+        (rows_, qv), launched["sharded"], (codes, qs, table, out, kw),
+        launched["sharded_quantized"])
+    del mdb
+    log(f"mesh engine phase 36: {time.perf_counter() - t_phase:.1f} s | "
+        f"{card}")
+    return entries
 
 
 # -- the engine's write-path plane (phases 22-26) ---------------------------
@@ -1841,6 +2545,12 @@ LABEL_WORDS = (("w0", 0.5), ("w1", 0.5), ("w2", 0.25), ("w3", 0.25))
 AND_REPS = 64
 DEVICE_AND_KEYS = 8                # setops._DEVICE_MIN_BLOCKS
 RECURSE_ROOTS = 64
+# filtered children: a filtered recurse expands each level in one batch
+# (the device expand); an unfiltered one reads per parent
+RECURSE_Q = ("{ r(func: uid(%#x)) @recurse(depth: 3) { uid "
+             "~director.film @filter(has(director.film)) "
+             "director.film @filter(has(name)) "
+             "starring @filter(has(performance.actor)) } }")
 SHORTEST_PAIRS = 64
 # the device tiers the golden suite reaches with device_min_edges=1
 GOLDEN_TIERS = ('query_device_expand_total{dir="fwd"}',
@@ -2186,6 +2896,10 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
     # -- 31. @recurse and shortest through query() -------------------------
     recurse_and_shortest(db, cpu, card, kernels, metrics)
     del cpu
+
+    # -- 36. the mesh engine ------------------------------------------------
+    entries += mesh_engine_phase(dev, card, db, golden, state, quant, lits,
+                                 root_q)
     return entries
 
 
@@ -2320,17 +3034,9 @@ def recurse_and_shortest(db, cpu, card: str, kernels, metrics) -> None:
     """Phase 31: @recurse and shortest through query() on the card (the
     device tiers forced, device_min_edges=1, on both engines), each
     equal to the CPU engine's data and timed beside the host path."""
-    rng = np.random.default_rng(31)
-    films = np.asarray(sorted(db.tablets["starring"].edges), np.int64)
+    rng, films, roots = recurse_roots(db)
     directors = np.asarray(sorted(db.tablets["director.film"].edges),
                            np.int64)
-    roots = rng.choice(films, RECURSE_ROOTS, replace=False)
-    # filtered children: a filtered recurse expands each level in one
-    # batch (the device expand); an unfiltered one reads per parent
-    rec_q = ("{ r(func: uid(%#x)) @recurse(depth: 3) { uid "
-             "~director.film @filter(has(director.film)) "
-             "director.film @filter(has(name)) "
-             "starring @filter(has(performance.actor)) } }")
     genres = np.asarray(sorted(db.tablets["genre"].reverse), np.int64)
     pairs = []
     for i in range(SHORTEST_PAIRS):
@@ -2347,7 +3053,7 @@ def recurse_and_shortest(db, cpu, card: str, kernels, metrics) -> None:
             pairs.append(("director.film", d, f))
     sp_q = ("{ p as shortest(from: %#x, to: %#x) { %s } "
             "n(func: uid(p)) { uid } }")
-    cases = {"recurse": [rec_q % int(r) for r in roots],
+    cases = {"recurse": [RECURSE_Q % int(r) for r in roots],
              "shortest": [sp_q % (a, b, p) for p, a, b in pairs]}
     counters = {"recurse": "query_device_expand_total",
                 "shortest": "query_device_sssp_total"}
@@ -2875,6 +3581,10 @@ def vector_plane(dev, card: str) -> list[dict]:
         f"{sum(total_s) / len(total_s) * 1e3:.3f} ms per search; the rest "
         f"is the host's filter, cut and float64 re-rank | {card}")
 
+    # -- 35. sharded similar_to ----------------------------------------------
+    mesh_entries = mesh_vector_phase(dev, card, corpus, queries,
+                                     answers["exact"], ix, tol)
+
     # -- 11. device time by kernel -----------------------------------------
     corpus_dev = torch.from_numpy(corpus).to(dev)
     profile_window(lambda: exact_fn(False)(queries), 1, "exact batch", card)
@@ -2908,7 +3618,7 @@ def vector_plane(dev, card: str) -> list[dict]:
          "launches": int8_launches, "max_abs_err": err_int8,
          "ms": int8_ms, "plain_ms": int8_plain_ms, "bound_ms": int8_bound,
          "bound_by": int8_by, "library_ms": None},
-    ]
+    ] + mesh_entries
 
 
 # -- the sorted-UID set-algebra plane (phases 13-17) ------------------------

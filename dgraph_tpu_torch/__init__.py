@@ -46,7 +46,12 @@ Ported so far:
   `GraphDB.query`, `query_json`, upserts and @if conditions. Every
   device tier of a query runs on the engine's device: the pack
   algebra's AND through `bitmap_and`, similar_to through `score_dot`
-  and `score_int8_lists`, the rest plain PyTorch.
+  and `score_int8_lists`, the rest plain PyTorch;
+- multi-device (`parallel`): a device mesh and its partition rules, the
+  uid-range-sharded adjacency with its expand, sharded and ring BFS,
+  the (data, tablet, uid) query step and sharded similar_to, in one
+  process (per-shard loops, collectives as copies between the shards'
+  devices); `GraphDB(mesh=...)` runs its sharded tiers on them.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

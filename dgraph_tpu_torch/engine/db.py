@@ -26,9 +26,13 @@ and `debug_stats` behave as the reference's. The engine runs on
 `device` (None: the card); its tablets, tiles and vector indexes live
 there, and every device tier of the query path runs there.
 
+`mesh` (a `parallel.mesh.Mesh`) takes predicates of at least
+`shard_min_edges` edges onto the mesh's `uid` shards
+(`device_cache.device_sharded_adjacency`), and similar_to onto its
+sharded tiers.
+
 Later slices lift the seams this one leaves; each raises
 NotImplementedError naming its slice (ROADMAP Queue 1):
-  item 8, multi-device: `mesh`;
   item 9, cold storage: `store_dir` (and `checkpoint`),
     `result_cache_entries`, `prefetch_workers`.
 """
@@ -175,8 +179,6 @@ class GraphDB:
         from dgraph_tpu_torch.ops.codec import DecodeScratch
         from dgraph_tpu_torch.query.plan import PlanCache
 
-        if mesh is not None:
-            raise _later_slice("a device mesh", 8, "multi-device")
         for opt, used in (("store_dir", store_dir is not None),
                           ("result_cache_entries", result_cache_entries),
                           ("prefetch_workers", prefetch_workers)):
@@ -252,8 +254,8 @@ class GraphDB:
         # decode into (results are always fresh; see DecodeScratch)
         self.decode_scratch = DecodeScratch()
         # uid-range sharding across a device mesh (`uid` axis):
-        # predicates above shard_min_edges expand via shard_map over the
-        # mesh instead of a single chip (ref posting/list.go:1149
+        # predicates above shard_min_edges expand across the mesh's uid
+        # shards instead of a single device (ref posting/list.go:1149
         # multi-part posting lists; SURVEY §5.7)
         self.mesh = mesh
         self.shard_min_edges = shard_min_edges

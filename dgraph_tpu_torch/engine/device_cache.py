@@ -18,9 +18,10 @@ tablet's device (`Tablet.device`) by the port's `ops/graph` and
 `ops/bitgraph`, whose uid tensors are int64 holding uint32 values.
 `expand_np` calls `graph.expand` directly and caches `max_expansion`
 per padded frontier size, where the reference caches a jitted expander.
-`device_sharded_adjacency` needs a device mesh, which comes with the
-multi-device slice (ROADMAP Queue 1 item 8): until then it answers None,
-as the reference does without a mesh.
+`device_sharded_adjacency` builds the uid-range-sharded adjacency of
+`parallel/dist_graph` on the engine's mesh (`GraphDB(mesh=...)`), one
+int64 tensor pair a shard and bucket on the shard's device; the tile
+budget charges every shard's bytes.
 """
 
 from __future__ import annotations
@@ -183,11 +184,48 @@ def device_bitadjacency(db, tab, read_ts: int, transpose: bool = False):
 def device_sharded_adjacency(db, tab, read_ts: int,
                              reverse: bool = False):
     """UID-range-sharded adjacency over the engine's device mesh — the
-    multi-part posting list tier (posting/list.go:1149 splitUpList).
-    The port's engine has no mesh yet (ROADMAP Queue 1 item 8;
-    `GraphDB(mesh=...)` raises), so this answers None, as the
-    reference's does without one."""
-    return None
+    multi-part posting list tier (posting/list.go:1149 splitUpList):
+    predicates above db.shard_min_edges get range-partitioned across
+    the mesh's `uid` axis and expanded with one per-shard pass and a
+    gather per level (parallel/dist_graph).
+
+    Residency rules match the single-device tiles; requires db.mesh with
+    a >1-sized `uid` axis."""
+    mesh = getattr(db, "mesh", None)
+    if mesh is None or "uid" not in mesh.axis_names \
+            or mesh.shape["uid"] < 2:
+        return None
+    if reverse and not tab.schema.reverse:
+        return None
+    if not _clean_resident(db, tab, read_ts):
+        return None
+    attr = "_device_sadj_r" if reverse else "_device_sadj"
+    sadj = getattr(tab, attr, None)
+    if sadj is not None and getattr(tab, attr + "_ts", -1) == tab.base_ts:
+        db.device_cache.touch(tab, attr)
+        return sadj
+    # memoize the below-threshold verdict per base_ts: without it,
+    # every expansion level on a mesh-enabled db would re-walk the
+    # whole edge map just to fall through to the single-device tier
+    if getattr(tab, attr + "_small_ts", -1) == tab.base_ts:
+        return None
+    edge_map = tab.reverse if reverse else tab.edges
+    n_edges = sum(len(v) for v in edge_map.values())
+    if n_edges < db.shard_min_edges:
+        setattr(tab, attr + "_small_ts", tab.base_ts)
+        return None
+    edges32 = _edges32(edge_map)
+    if edges32 is None:
+        return None
+    from dgraph_tpu_torch.parallel.dist_graph import build_sharded_adjacency
+    with _span("device.tile_load", pred=tab.pred, kind="sharded",
+               edges=n_edges):
+        sadj = build_sharded_adjacency(
+            edges32, n_shards=mesh.shape["uid"]).put(mesh)
+    setattr(tab, attr, sadj)
+    setattr(tab, attr + "_ts", tab.base_ts)
+    db.device_cache.put(tab, attr, sadj)
+    return sadj
 
 
 def host_column_tile(db, tab, attr: str, obj) -> None:

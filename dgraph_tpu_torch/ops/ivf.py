@@ -366,21 +366,24 @@ def _by_list(lists: np.ndarray) -> dict[int, list[int]]:
 
 
 def _approx_scores_host(ivf: IVFIndex, lists: np.ndarray,
-                        cs: np.ndarray, q: np.ndarray
+                        cs: np.ndarray, q: np.ndarray,
+                        lo: int = 0, hi: int | None = None
                         ) -> tuple[list, list]:
     """Approximate residual-dot scores of every probed candidate on the
     host, grouped by list: each list's int8 block dequantizes once and
     scores all m sharing queries in one (len, d) x (d, m) product.
+
+    [lo, hi) restricts scoring to a clustered-slot range (the sharded
+    tier's per-shard partition, parallel/dist_knn); the intersection
+    with a list's slice is plain arithmetic.
+
     Returns per-query (slot-id arrays, approx-dot arrays), concat order
     = (list id, slot)."""
     nq = len(lists)
     by_list = _by_list(lists)
     slot_parts: list[list[np.ndarray]] = [[] for _ in range(nq)]
     dot_parts: list[list[np.ndarray]] = [[] for _ in range(nq)]
-    for li in sorted(by_list):
-        s, e = int(ivf.starts[li]), int(ivf.starts[li + 1])
-        if e <= s:
-            continue
+    for li, s, e in _list_slices(ivf, sorted(by_list), lo, hi):
         qis = by_list[li]
         block = ivf.codes[s:e].astype(np.float32)       # dequant once
         dots = block @ q[qis].T                         # (len, m)
@@ -396,30 +399,42 @@ def _approx_scores_host(ivf: IVFIndex, lists: np.ndarray,
              for dp in dot_parts])
 
 
-def _list_plan(ivf: IVFIndex, lists: np.ndarray) -> list:
-    """(list id, start, end, query ids) of every non-empty probed list,
-    by list id: the order of the device route's flat output."""
-    plan = []
-    for li, qis in sorted(_by_list(lists).items()):
-        s, e = int(ivf.starts[li]), int(ivf.starts[li + 1])
+def _list_slices(ivf: IVFIndex, list_ids, lo: int, hi: int | None):
+    """(list id, start, end) of each list's slice cut to the slot range
+    [lo, hi), in the given order; empty cuts left out."""
+    hi = ivf.n_rows if hi is None else hi
+    for li in list_ids:
+        s = max(lo, int(ivf.starts[li]))
+        e = min(hi, int(ivf.starts[li + 1]))
         if e > s:
-            plan.append((li, s, e, qis))
-    return plan
+            yield li, s, e
+
+
+def _list_plan(ivf: IVFIndex, lists: np.ndarray, lo: int = 0,
+               hi: int | None = None) -> list:
+    """(list id, start, end, query ids) of every probed list with slots
+    in [lo, hi), by list id: the order of the device route's flat
+    output."""
+    by_list = _by_list(lists)
+    return [(li, s, e, by_list[li])
+            for li, s, e in _list_slices(ivf, sorted(by_list), lo, hi)]
 
 
 def _approx_scores_device(ivf: IVFIndex, lists: np.ndarray,
-                          cs: np.ndarray, q: torch.Tensor
+                          cs: np.ndarray, q: torch.Tensor,
+                          lo: int = 0, hi: int | None = None
                           ) -> tuple[list, list]:
     """`_approx_scores_host`'s per-query (slots, approx dots), computed
     on the index's device in one `score_int8_lists` launch over a work
     table of every distinct probed list: the contiguous slice
-    `codes[s:e]`, the queries that probe it (in chunks of at most
-    `lists_m_tile(d, device)`), `* scales[s:e] + cs[qi, li]` in the
-    kernel. The flat output, list after list and query after query,
-    comes to the host in one copy. `q` is the float32 (nq, d) query
-    tensor on the index's device."""
+    `codes[s:e]` cut to [lo, hi), the queries that probe it (in chunks
+    of at most `lists_m_tile(d, device)`), `* scales[s:e] + cs[qi, li]`
+    in the kernel. A range that meets no probed list launches nothing.
+    The flat output, list after list and query after query, comes to the
+    host in one copy. `q` is the float32 (nq, d) query tensor on the
+    index's device."""
     nq = len(lists)
-    plan = _list_plan(ivf, lists)
+    plan = _list_plan(ivf, lists, lo, hi)
     slot_parts: list[list[np.ndarray]] = [[] for _ in range(nq)]
     dot_parts: list[list[np.ndarray]] = [[] for _ in range(nq)]
     if plan:

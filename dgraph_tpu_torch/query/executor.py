@@ -54,14 +54,6 @@ _MISS_CV = object()  # _colview memo sentinel (None is a valid verdict)
 SIMILAR_SCORE_VAR = "similar_to_score"
 
 
-def _multi_device(what: str) -> NotImplementedError:
-    """The mesh paths wait for the multi-device slice; an engine of
-    this port has no mesh, so none is reached."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 8, "
-        "multi-device)")
-
-
 def _member_of(uids: np.ndarray, sorted_set: np.ndarray) -> np.ndarray:
     """Bool mask: which of `uids` appear in the sorted-unique set
     (the hit-mask half of _col_positions)."""
@@ -1262,13 +1254,35 @@ class Executor:
 
     def _sharded_ivf_topk(self, tab, ivf, view, qm, k, metric,
                           base_mask):
-        """Quantized scoring over a sharded corpus: the multi-device
-        slice's (ROADMAP Queue 1 item 8)."""
-        raise _multi_device("sharded quantized similar_to")
+        """Quantized scoring over a sharded corpus: per-shard
+        candidate top-R + merge + exact re-rank
+        (parallel/dist_knn.sharded_ivf_topk)."""
+        from dgraph_tpu_torch.parallel.dist_knn import sharded_ivf_topk
+
+        inc_counter("query_similar_sharded_total")
+        return sharded_ivf_topk(
+            self.db.mesh, ivf, view.base_vecs, qm, k, metric,
+            keep=base_mask, nprobe=self.db.vec_nprobe,
+            rerank=self.db.vec_rerank)
 
     def _sharded_vec_topk(self, tab, view, qm, k, metric, base_mask):
-        """Mesh-sharded exact scoring: the multi-device slice's."""
-        raise _multi_device("sharded similar_to")
+        """Mesh-sharded scoring: the block rides the `uid` axis, each
+        shard computes a local top-k, one gather merges
+        (parallel/dist_knn.py)."""
+        from dgraph_tpu_torch.parallel.dist_knn import (
+            shard_corpus, sharded_topk,
+        )
+
+        mesh = self.db.mesh
+        cached = getattr(tab, "_device_vecs_sharded", None)
+        if cached is not None and cached[0] == tab.base_ts:
+            block, n_real = cached[1], cached[2]
+        else:
+            block, n_real = shard_corpus(mesh, view.base_vecs)
+            tab._device_vecs_sharded = (tab.base_ts, block, n_real)
+        inc_counter("query_similar_sharded_total")
+        return sharded_topk(mesh, block, qm, k, metric,
+                            mask=base_mask, n_real=n_real)
 
     def _eval_geo(self, fn: Function, candidates) -> np.ndarray:
         """near/within/contains/intersects: geo-cell index prefilter +
@@ -3253,14 +3267,18 @@ class Executor:
             return None
         if self.db.mesh is not None:
             # uid-range-sharded tier first: a predicate too big for one
-            # chip expands via shard_map over the mesh (SURVEY §5.7).
+            # device expands across the mesh's uid shards (SURVEY §5.7).
             # Capacity, not latency: the cost gate below never blocks
-            # this tier — the single-chip/host choice is moot for a
-            # tablet that exceeds one chip.
+            # this tier — the single-device/host choice is moot for a
+            # tablet that exceeds one device.
             sadj = device_sharded_adjacency(self.db, tab, self.read_ts,
                                             reverse)
             if sadj is not None:
-                raise _multi_device("a sharded expand")
+                from dgraph_tpu_torch.parallel.dist_graph import \
+                    expand_sharded_np
+                inc_counter("query_sharded_expand_total",
+                            labels={"dir": "rev" if reverse else "fwd"})
+                return expand_sharded_np(self.db.mesh, sadj, src)
         store = tab.reverse if reverse else tab.edges
         deg = tab.edge_count(reverse) / max(1, len(store))
         if not self._device_worth(

@@ -27,9 +27,12 @@ separate sort dispatch, the pagination round-trip, and the host glue
 between them.
 
 Sharding is declared, not hand-placed: FUSION_RULES is an ordered
-(regex, mesh axis names) table resolved per operand name. On a
-mesh-less engine the rules are inert; the sharded executable waits
-for the multi-device slice (ROADMAP Queue 1 item 8).
+(regex, mesh axis names) table resolved per operand name
+(parallel/mesh.shard_by_rules). On a mesh-less engine the rules are
+inert. On a mesh the reference lets XLA partition the fused program by
+them; PyTorch partitions nothing by itself, so the port resolves the
+rules and runs the page whole on the mesh's first device (the answers
+are the same).
 
 Filter leaves lower in one of two forms:
 
@@ -239,18 +242,48 @@ def fused_executable(mesh, mesh_key, fop: str, rank_negs: tuple,
 
     `rank_luts`/`ord_luts` are the STATIC dv_view form flags (True =
     dense rank LUT, False = sorted uid/rank planes): they change which
-    gather runs, so they key the registry. A mesh raises: the sharded
-    executable is the multi-device slice's (ROADMAP Queue 1 item 8)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh-sharded fused executable is not ported yet (ROADMAP "
-            "Queue 1 item 8, multi-device)")
+    gather runs, so they key the registry. On a mesh every operand is
+    named and placed through FUSION_RULES (parallel/mesh.shard_by_rules:
+    the mesh's first device)."""
+    from dgraph_tpu_torch.parallel.mesh import shard_by_rules
 
     def build():
         from dgraph_tpu_torch.ops.graph import fused_rank_page
 
         def run(cand, rank_views, rank_los, rank_his, fparts,
                 ord_views, base0, offset):
+            if mesh is not None:
+                def _names(prefix, views, luts):
+                    out = {}
+                    for i, ((a, b), is_lut) in enumerate(
+                            zip(views, luts)):
+                        if is_lut:  # replicated: no rule matches
+                            out[f"{prefix}_lut{i}"] = a
+                            out[f"{prefix}_base{i}"] = b
+                        else:
+                            out[f"{prefix}_uids{i}"] = a
+                            out[f"{prefix}_ranks{i}"] = b
+                    return out
+
+                def _views(named, prefix, luts):
+                    return tuple(
+                        (named[f"{prefix}_lut{i}"],
+                         named[f"{prefix}_base{i}"]) if is_lut else
+                        (named[f"{prefix}_uids{i}"],
+                         named[f"{prefix}_ranks{i}"])
+                        for i, is_lut in enumerate(luts))
+
+                named = {"cand": cand}
+                named.update(_names("rk", rank_views, rank_luts))
+                named.update(_names("dv", ord_views, ord_luts))
+                named.update(
+                    {f"fpart{i}": p for i, p in enumerate(fparts)})
+                named = shard_by_rules(mesh, FUSION_RULES, named)
+                cand = named["cand"]
+                rank_views = _views(named, "rk", rank_luts)
+                ord_views = _views(named, "dv", ord_luts)
+                fparts = tuple(named[f"fpart{i}"]
+                               for i in range(len(fparts)))
             return fused_rank_page(
                 cand, rank_views, rank_luts, rank_los, rank_his,
                 rank_negs, fparts, set_negs, set_aligned, fop,

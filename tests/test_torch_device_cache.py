@@ -11,9 +11,8 @@ the bytes to the device column (a decided difference). A dirty tablet
 answers None until rollup; `expand_np` answers alike; on tiles of equal
 byte size the LRU evicts in the same order.
 
-Not yet run by the port: `device_sharded_adjacency`, which needs a
-device mesh (ROADMAP Queue 1 item 8); without one it answers None, as
-the reference's does."""
+Without a device mesh `device_sharded_adjacency` answers None, as the
+reference's does; on a mesh it is held in test_torch_sharded_engine."""
 
 import dataclasses
 

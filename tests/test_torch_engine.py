@@ -18,8 +18,12 @@ exports and `split_prune`) run through both engines and give equal
 results (test_lifted_seams_equal_the_reference; the query path itself
 is held in test_torch_query_golden and test_torch_query_paths).
 
+`mesh` (a device mesh taking predicates onto its uid shards) also runs
+through both engines (test_lifted_seams_equal_the_reference; the mesh
+paths themselves are held in test_torch_sharded_engine).
+
 Not yet run by the port, with the slice each waits for (ROADMAP Queue
-1): `mesh` (item 8); `store_dir`, `checkpoint`, `result_cache_entries`,
+1): `store_dir`, `checkpoint`, `result_cache_entries`,
 `prefetch_workers` (item 9). Each raises NotImplementedError naming its
 slice (test_seams_name_their_slice)."""
 
@@ -342,8 +346,6 @@ def _db():
 
 
 SEAMS = {
-    "mesh": (lambda: TDB(plan_cache_size=0, mesh=object(), device="cpu"),
-             "item 8"),
     "store_dir": (lambda: TDB(plan_cache_size=0, store_dir="x",
                               device="cpu"), "item 9"),
     "result_cache": (lambda: TDB(plan_cache_size=0, result_cache_entries=4,
@@ -383,6 +385,21 @@ def _split_prune():
             db.query("{ q(func: has(name)) { uid name } }")["data"])
 
 
+def _mesh():
+    """A 4-shard uid mesh on each side (the reference's virtual CPU
+    devices, the port's CPU entries): the friend edge expands across
+    it."""
+    from dgraph_tpu.parallel import make_mesh as jmesh
+    from dgraph_tpu_torch.parallel import make_mesh as tmesh
+    from tests.test_torch_query_paths import Twin
+
+    mesh = Twin(jmesh(4, axes=("uid",)),
+                tmesh(devices=["cpu"] * 4, axes=("uid",)), "mesh")
+    db = _twin_db(mesh=mesh, shard_min_edges=1, device_min_edges=10**9)
+    db.rollup_all(0)
+    return db.query("{ q(func: has(name)) { name friend { name } } }")
+
+
 def _sharded_export():
     db = _twin_db()
     db.rollup_all(0)
@@ -409,6 +426,7 @@ LIFTED = {
                             cond="@if(eq(len(v), 0))"),
                    Mutation(set_nquads='uid(v) <name> "v" .',
                             cond="@if(eq(len(v), 1))")]),
+    "mesh": _mesh,
     "split_prune": _split_prune,
     "sharded_export": _sharded_export,
 }
