@@ -194,7 +194,7 @@ are counted):
    tier (score_dot once); p50 and p99 latency of each tier;
 30. pack algebra: LABEL_NODES fresh nodes with `label: string
    @index(term)` (words w0-w3 with probabilities 1/2, 1/2, 1/4, 1/4),
-   loaded in transactions of 1,000 and rolled up; every word's pack
+   bulk-loaded into the engine; every word's pack
    holds at least 8 BITMAP blocks on common keys; allofterms over 2, 3
    and 4 words, AND_REPS times each: one bitmap_and launch a query, the
    uids of a numpy oracle and of the plain bitmap_and; the kernel's time
@@ -243,8 +243,45 @@ state it reuses:
    29's) and the sharded tier (4 score_dot launches a request), p50 and
    p99 of each.
 
-The planes run in the order BFS, graph ops, write path and queries, set
-algebra, vectors. Each
+The cold plane (cold storage and ingest), after phase 36 on the write
+plane's engine, in build/cold_plane/ (removed at the end), run in the
+order 37, 38, 39, 42, 40, 41:
+
+37. `export_rdf` and `export_schema` of that engine to files;
+   `bulk_load` of them into `GraphDB(store_dir, device=cuda:0)`, every
+   predicate offloaded as its reduce finishes and no kernel launched;
+   `rollup_all(0)` trains the vector index on the card (score_int8_lists
+   once a calibration step); the trained tablet saved, `checkpoint()`,
+   `close()`; RDF/s and vectors/s; `live_load` and `bulk_load` of the
+   scale-1 golden RDF on the card give equal export lines;
+38. the store reopened under a third of its tablets' approx_bytes with
+   two prefetch workers and the adaptive planner: the 75 goldens, a cold
+   and a warm pass, equal to phase 28's answers, with tablet loads and
+   evictions;
+39. reopened with the static planner and the default budget: phase 29's 256 similar_to requests
+   on the quantized tier (one score_int8_lists launch a request, the
+   index from the store) and the exact tier (one score_dot launch),
+   equal to phase 29's answers; the vector tablet offloaded
+   (memory_allocated before and after) and asked again alike;
+   allofterms over the lazily loaded labels equal to phase 30's, one
+   bitmap_and launch a query; the store's export equal to the source's,
+   line for line after a sort;
+42. on 39's engine: a full backup to build/cold_plane/bk, a commit, an
+   incremental backup; `restore` onto a fresh card engine and
+   `restore_to_ts` at the full backup, dump_tablet bytes equal to the
+   source's at each; the restored index answers similar_to with one
+   score_int8_lists launch and no training;
+40. reopened with `result_cache_entries=4096`: the goldens and the
+   similar_to requests twice, the second pass all hits with no launch;
+   a commit to `label` drops the entries that read it;
+41. tools/bench_500m.py's S1-S5 at its widths (U 262,144 a group, follow
+   16,384 x 448) over B500M_GROUPS seeded groups through bulkseed, under
+   a budget below the sampled groups' working set with two prefetch
+   workers: cold and warm passes, fused and staged arms, and the
+   all-tiers-off postings oracle agree; p50 and p95 a shape.
+
+The planes run in the order BFS, graph ops, write path, queries and
+cold storage, set algebra, vectors. Each
 figure is printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
@@ -2129,9 +2166,11 @@ def write_plane(dev, card: str) -> list[dict]:
     """Phases 22-26: the engine's write path (`engine/db.GraphDB` over
     `storage/`, `cdc/`, `wire/`) on the card, its WAL and snapshot in a
     scratch directory under build/; then phases 27-31, the query path,
-    on the same engine and state. Returns the kernels line's entries of
-    score_int8_lists as rollup drives it, and of score_int8_lists,
-    score_dot and bitmap_and as queries drive them."""
+    on the same engine and state, and phases 37-42, the cold plane, on
+    its export. Returns the kernels line's entries of score_int8_lists as
+    rollup drives it, and of score_int8_lists, score_dot and bitmap_and
+    as queries drive them, on the write plane's engine and through the
+    store."""
     import shutil
 
     work = os.path.join(REPO, "build", "write_plane")
@@ -2144,6 +2183,9 @@ def write_plane(dev, card: str) -> list[dict]:
         t0 = time.perf_counter()
         entries = query_plane(dev, card, state)
         log(f"query plane: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries += cold_plane(dev, card, state)
+        log(f"cold plane: {time.perf_counter() - t0:.1f} s")
         return [entry] + entries
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2536,9 +2578,7 @@ QUERY_REPS = 5                     # warm runs of a golden query at scale 10
 SIMILAR_K = 10
 # phase 30: 2^19 fresh nodes from a block-aligned uid, so their 8 blocks
 # of 65,536 uids are whole (the device AND's floor); words w0-w3 each
-# with its own probability (PERF.md's setops-and-67M shape). No more:
-# the rollup's fold inserts uid by uid into a word's posting list, so
-# its time grows with the square of the nodes
+# with its own probability (PERF.md's setops-and-67M shape)
 LABEL_NODES = 1 << 19
 LABEL_UID0 = 1 << 25
 LABEL_WORDS = (("w0", 0.5), ("w1", 0.5), ("w2", 0.25), ("w3", 0.25))
@@ -2692,6 +2732,7 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
         if not (on_card["data"] == on_cpu == host):
             raise AssertionError(f"{name} at scale {GOLDEN_SCALE}: card, "
                                  f"CPU and host path differ")
+        state.setdefault("golden10", {})[name] = on_card["data"]
         host_ms = median_ms(lambda: db.query(text), QUERY_REPS)
         db.prefer_device = True
         card_ms = median_ms(lambda: db.query(text), QUERY_REPS)
@@ -2825,6 +2866,8 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
     if f_sets != [sorted(int(r["uid"], 16) for r in out)
                   for out in exact_dev]:
         raise AssertionError("filtered similar_to != the root exact tier")
+    state["similar"] = {"lits": lits, "root_q": root_q, "quant": quant,
+                        "exact": exact_dev}
     tier = "two-stage" if knn.plan_two_stage(WRITE_VECS, SIMILAR_K) \
         else "exact"
     log(f"similar_to through query(), {len(lits)} requests a tier, k "
@@ -2891,7 +2934,7 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
         f" (device times from a flushed L2, CUDA events) | {card}")
 
     # -- 30. pack algebra on the card --------------------------------------
-    entries.append(label_phase(db, dev, card, kernels, setops))
+    entries.append(label_phase(db, dev, card, kernels, setops, state))
 
     # -- 31. @recurse and shortest through query() -------------------------
     recurse_and_shortest(db, cpu, card, kernels, metrics)
@@ -2903,10 +2946,12 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
     return entries
 
 
-def label_phase(db, dev, card: str, kernels, setops) -> dict:
+def label_phase(db, dev, card: str, kernels, setops, state: dict) -> dict:
     """Phase 30: allofterms over a dense term index, through query(),
-    with the device AND. Returns the kernels line's entry of
-    bitmap_and."""
+    with the device AND; each query's uids go into state["labels"].
+    Returns the kernels line's entry of bitmap_and."""
+    from dgraph_tpu_torch.gql.nquad import parse_rdf
+    from dgraph_tpu_torch.ingest import bulk_load
     from dgraph_tpu_torch.models.tokenizer import get_tokenizer
     from dgraph_tpu_torch.ops import codec
     from dgraph_tpu_torch.utils.keys import token_bytes
@@ -2917,11 +2962,14 @@ def label_phase(db, dev, card: str, kernels, setops) -> dict:
     labels = [" ".join(w for w in words if has[w][i])
               for i in range(LABEL_NODES)]
     db.alter("label: string @index(term) .")
+    # bulk_load writes the tablet's base state: transactions would leave
+    # 2^19 postings for the rollup's fold, which inserts uid by uid
+    # (143.82 s on the card's host)
     t0 = time.perf_counter()
-    for s in range(0, LABEL_NODES, WRITE_BATCH):
-        db.mutate(set_nquads="\n".join(
-            f'<{LABEL_UID0 + i:#x}> <label> "{labels[i]}" .'
-            for i in range(s, min(LABEL_NODES, s + WRITE_BATCH))))
+    bulk_load(nquads=(parse_rdf("\n".join(
+        f'<{LABEL_UID0 + i:#x}> <label> "{labels[i]}" .'
+        for i in range(s, min(LABEL_NODES, s + WRITE_BATCH))))
+        for s in range(0, LABEL_NODES, WRITE_BATCH)), db=db)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     db.rollup_all(0)
@@ -2941,8 +2989,7 @@ def label_phase(db, dev, card: str, kernels, setops) -> dict:
         raise AssertionError(f"label: {len(all_bitmap)} all-bitmap blocks "
                              f"on common keys < {DEVICE_AND_KEYS}")
     log(f"pack algebra, load: {LABEL_NODES} nodes with `label: string "
-        f"@index(term)`, words {dict(LABEL_WORDS)}, in "
-        f"{-(-LABEL_NODES // WRITE_BATCH)} transactions of {WRITE_BATCH} "
+        f"@index(term)`, words {dict(LABEL_WORDS)}, through bulk_load "
         f"in {load_s:.2f} s ({LABEL_NODES / load_s:.0f} RDF/s); "
         f"rollup_all(0) {rollup_s:.2f} s; every word's pack holds "
         f"{len(all_bitmap)} BITMAP blocks on common keys | {card}")
@@ -2967,6 +3014,7 @@ def label_phase(db, dev, card: str, kernels, setops) -> dict:
                 " ".join(ws)
             mask = np.logical_and.reduce([has[w] for w in ws])
             want = (LABEL_UID0 + np.flatnonzero(mask)).tolist()
+            state.setdefault("labels", {})[" ".join(ws)] = want
             wall = []
             for r in range(AND_REPS):
                 reset_launches(kernels)
@@ -3098,6 +3146,695 @@ def recurse_and_shortest(db, cpu, card: str, kernels, metrics) -> None:
     finally:
         db.device_min_edges = cpu.device_min_edges = 1024
         db.prefer_device = True
+
+
+# -- the cold plane (phases 37-42) ------------------------------------------
+
+COLD_LIVE_SCALE = 1                # phase 37's live_load against bulk_load
+COLD_AND_REPS = 8                  # allofterms runs a word set, phase 39
+COLD_RESTORED_QUERIES = 16         # similar_to on the restored engine, 42
+B500M_GROUPS = 4                   # of tools/bench_500m.py's 64
+B500M_SAMPLE = 2                   # of its 12 sampled groups
+B500M_REPS = 5                     # of its 7
+
+
+def bench_500m():
+    """tools/bench_500m.py, loaded by its path: S1-S5's shapes, the
+    schema and the published widths (its module imports only the
+    standard library and numpy; its seeding uses the reference's store,
+    so the plane seeds the port's with the same generator)."""
+    import importlib.util
+
+    path = os.path.join(REPO, "tools", "bench_500m.py")
+    spec = importlib.util.spec_from_file_location("bench_500m", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def line_digests(lines) -> list:
+    """Sorted sha1 digests of export lines: equal lists mean equal
+    exports line for line after a sort, at 20 bytes a line."""
+    import hashlib
+
+    return sorted(hashlib.sha1(ln.encode()).digest() for ln in lines)
+
+
+def counted_query(db, kernels, text: str, name: str, n: int, label: str):
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    out = db.query(text)["data"]
+    ms = (time.perf_counter() - t0) * 1e3
+    only_launched(label, launches_of(kernels), name, n)
+    return out, ms
+
+
+def cold_plane(dev, card: str, state: dict) -> list[dict]:
+    """Phases 37-42: cold storage and ingest (`ingest/`, `storage/backup`,
+    `engine/lazy_tablets`, `prefetch`, `result_cache`) on the card, on
+    the write plane's engine exported and bulk-loaded into a store under
+    build/cold_plane/ (removed at the end). Phase 42 backs up the store
+    engine of phase 39, so it runs before 40 and 41. Returns the kernels
+    line's entries of score_int8_lists, score_dot and bitmap_and as the
+    store-backed engines drive them."""
+    import shutil
+
+    work = os.path.join(REPO, "build", "cold_plane")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        cold = {}
+        t0 = time.perf_counter()
+        cold_load(dev, card, state, work, cold)
+        log(f"cold plane, phase 37: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cold_reopen(dev, card, state, cold)
+        log(f"cold plane, phase 38: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        db = cold_kernels(dev, card, state, cold)
+        log(f"cold plane, phase 39: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cold_backup(dev, card, state, cold, db, work)
+        log(f"cold plane, phase 42: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cold_result_cache(dev, card, state, cold)
+        log(f"cold plane, phase 40: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cold_500m(dev, card, work)
+        log(f"cold plane, phase 41: {time.perf_counter() - t0:.1f} s")
+        return cold_kernel_entries(dev, card, cold)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cold_engine(store: str, dev, **kw):
+    from dgraph_tpu_torch.engine.db import GraphDB
+
+    return GraphDB(store_dir=store, device=dev,
+                   vec_index_min_rows=WRITE_VECS // 2, **kw)
+
+
+def cold_load(dev, card: str, state: dict, work: str, cold: dict) -> None:
+    """Phase 37: export, bulk load into a store, train, checkpoint."""
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.ingest import (
+        bulk_load, export_rdf, export_schema, live_load,
+    )
+    from dgraph_tpu_torch.ops import ivf, kernels
+
+    src = state["db"]
+    t0 = time.perf_counter()
+    lines = list(export_rdf(src))
+    schema = export_schema(src)
+    export_s = time.perf_counter() - t0
+    preds = {ln.split(" ", 2)[1][1:-1] for ln in lines}
+    vec_lines = [ln for ln in lines if " <embedding> " in ln]
+    paths = {"graph": os.path.join(work, "graph.rdf"),
+             "vectors": os.path.join(work, "vectors.rdf")}
+    with open(paths["graph"], "w") as f:
+        f.writelines(ln + "\n" for ln in lines if " <embedding> " not in ln)
+    with open(paths["vectors"], "w") as f:
+        f.writelines(ln + "\n" for ln in vec_lines)
+    cold["digests"] = line_digests(lines)
+    cold["sizes"] = {p: src.tablets[p].approx_bytes() for p in preds}
+    n_lines, n_vecs = len(lines), len(vec_lines)
+    del lines, vec_lines
+    store = os.path.join(work, "store")
+    cold["store"] = store
+    db = cold_engine(store, dev)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    bulk_load([paths["graph"]], schema=schema, db=db)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bulk_load([paths["vectors"]], db=db)
+    vec_s = time.perf_counter() - t0
+    if dict.keys(db.tablets) or db.tablets.stored != preds:
+        raise AssertionError(f"bulk_load left {sorted(dict.keys(db.tablets))}"
+                             f" resident; stored {len(db.tablets.stored)} of "
+                             f"{len(preds)} predicates")
+    load_launches = launches_of(kernels)
+    calls = []
+
+    def recorded(codes, qs, table, out, **kw):
+        calls.append((codes, qs, table, out, kw))
+        return kernels.score_int8_lists(codes, qs, table, out, **kw)
+
+    ivf.score_int8_lists = recorded
+    try:
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        db.rollup_all(0)
+        torch.cuda.synchronize()
+        rollup_s = time.perf_counter() - t0
+        launches = launches_of(kernels)
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+    tab = db.tablets["embedding"]
+    ix = tab.vector_ivf()
+    if ix is None or ix.device != dev:
+        raise AssertionError("rollup trained no vector index on the card")
+    steps = calibration_steps(ivf, ix)
+    only_launched("rollup after bulk_load", launches, "score_int8", steps)
+    if len(calls) != steps or any(load_launches.values()):
+        raise AssertionError(f"{len(calls)} recorded calibration calls for "
+                             f"{steps} steps; bulk_load launched "
+                             f"{load_launches}")
+    cold["rollup"] = {"launches": steps, "call": calls[-1]}
+    # flush_all writes back only tablets whose base moved since their last
+    # save; the index trained over the bulk-loaded base reaches the store
+    # by an explicit save (as it would through the reference's engine)
+    t0 = time.perf_counter()
+    db.tablet_store.save(tab)
+    db.checkpoint()
+    db.close()
+    ckpt_s = time.perf_counter() - t0
+    store_mb = sum(os.path.getsize(os.path.join(store, f))
+                   for f in os.listdir(store)) / 2**20
+    log(f"cold load: export_rdf of the write plane's engine ({len(preds)}"
+        f" predicates: the golden graph at scale {GOLDEN_SCALE}, {WRITE_VECS}"
+        f" x {WRITE_DIM} embeddings, {LABEL_NODES} labels) {n_lines} lines "
+        f"in {export_s:.2f} s; bulk_load into GraphDB(store_dir, device="
+        f"cuda:0): {n_lines - n_vecs} RDF in {graph_s:.2f} s "
+        f"({(n_lines - n_vecs) / graph_s:.0f} RDF/s), {n_vecs} vectors in "
+        f"{vec_s:.2f} s ({n_vecs / vec_s:.0f} vectors/s), every predicate "
+        f"offloaded as its reduce finished (0 resident), no kernel "
+        f"launched; rollup_all(0) {rollup_s:.2f} s trained the index "
+        f"{ix.describe()} on the card, score_int8_lists {steps} launches = "
+        f"{steps} calibration steps, every other kernel 0; save + "
+        f"checkpoint + close {ckpt_s:.2f} s, store {store_mb:.1f} MiB | "
+        f"{card}")
+
+    # live_load and bulk_load agree (the systest bulk/live equivalence)
+    schema1, lines1 = golden_dataset().generate(COLD_LIVE_SCALE)
+    path1 = os.path.join(work, "golden1.rdf")
+    with open(path1, "w") as f:
+        f.write("\n".join(lines1) + "\n")
+    live = GraphDB(device=dev)
+    t0 = time.perf_counter()
+    stats = live_load(live, [path1], schema=schema1)
+    live_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bulk = bulk_load([path1], schema=schema1, device=dev)
+    bulk_s = time.perf_counter() - t0
+    a, b = sorted(export_rdf(live)), sorted(export_rdf(bulk))
+    if a != b or stats["nquads"] != len(lines1):
+        raise AssertionError(f"live_load ({stats}) and bulk_load export "
+                             f"differ: {len(a)} against {len(b)} lines")
+    log(f"live_load of the scale-{COLD_LIVE_SCALE} golden RDF into "
+        f"GraphDB(device=cuda:0): {len(lines1)} RDF in {live_s:.2f} s "
+        f"({len(lines1) / live_s:.0f} RDF/s, {stats['txns']} transactions, "
+        f"{stats['aborts']} aborts); bulk_load {bulk_s:.2f} s "
+        f"({len(lines1) / bulk_s:.0f} RDF/s); their {len(a)} export lines "
+        f"equal after a sort | {card}")
+
+
+def cold_reopen(dev, card: str, state: dict, cold: dict) -> None:
+    """Phase 38: reopen under a budget a third of the tablets' bytes."""
+    from dgraph_tpu_torch.utils import metrics
+
+    total = sum(cold["sizes"].values())
+    budget = total // 3
+    cold["budget"] = budget
+    db = cold_engine(cold["store"], dev, tablet_budget=budget,
+                     prefetch_workers=2, planner="adaptive")
+    golden = golden_queries()
+    want = state["golden10"]
+    split = {}
+    before = metrics.counters_snapshot()
+    for kind in ("cold", "warm"):
+        ms = []
+        for name, text, _ in golden:
+            t0 = time.perf_counter()
+            got = db.query(text)["data"]
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not json_close(got, want[name]):
+                raise AssertionError(f"{name} from the reopened store ({kind}"
+                                     f" pass) != phase 28's answer")
+        split[kind] = ms
+    delta = metrics.counters_delta(before)
+    loads = delta.get("tablet_store_loads", 0)
+    evictions = delta.get("tablet_store_evictions", 0)
+    if loads <= 0 or evictions <= 0:
+        raise AssertionError(f"budget {budget}: {loads} loads, {evictions} "
+                             f"evictions")
+    pf = db.prefetcher.stats()
+    log(f"reopen: GraphDB(store_dir, tablet_budget={budget} (a third of the "
+        f"{total} approx_bytes of the {len(cold['sizes'])} stored tablets), "
+        f"prefetch_workers=2, planner=adaptive, device=cuda:0); the 75 "
+        f"goldens equal phase 28's card answers on a cold pass "
+        f"{sum(split['cold']):.1f} ms and a warm pass {sum(split['warm']):.1f}"
+        f" ms (sums, host clock); tablet_store_loads +{loads:g}, evictions "
+        f"+{evictions:g}, peak resident {db.tablets.peak_resident} bytes; "
+        f"prefetch hits {pf['hits']}, misses {pf['misses']}, waits "
+        f"{pf['waits']}, bytes {pf['bytes']} (scheduled {pf['scheduled']})"
+        f" | {card}")
+    db.close()
+
+
+def cold_kernels(dev, card: str, state: dict, cold: dict):
+    """Phase 39: similar_to and allofterms through the store."""
+    import gc
+
+    from dgraph_tpu_torch.ingest import export_rdf
+    from dgraph_tpu_torch.ops import ivf, kernels, knn, setops
+
+    # the default budget holds the whole store: phase 42's backups walk
+    # every tablet, which under phase 38's budget would decode each anew
+    db = cold_engine(cold["store"], dev, prefetch_workers=2,
+                     planner="static")
+    sim = state["similar"]
+    lits, root_q = sim["lits"], sim["root_q"]
+    last = {}
+
+    def recorded(fn, key):
+        def run(*args, **kw):
+            last[key] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    def similar(tier, name, want, label):
+        db.vec_quantized = tier == "quantized"
+        ms = []
+        for i, lit in enumerate(lits):
+            out, t = counted_query(db, kernels, root_q % (SIMILAR_K, lit),
+                                   name, 1, f"{label} {i}")
+            if out["q"] != want[i]:
+                raise AssertionError(f"{label} {i} != phase 29's answer")
+            ms.append(t)
+        db.vec_quantized = True
+        return ms
+
+    launches = {"score_int8": 0, "score_dot": 0, "bitmap_and": 0}
+    ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
+    knn.score_dot = recorded(kernels.score_dot, "dot")
+    try:
+        quant_ms = similar("quantized", "score_int8", sim["quant"],
+                           "quantized tier from the store")
+        exact_ms = similar("exact", "score_dot", sim["exact"],
+                           "exact tier from the store")
+        last.clear()            # the recorded arguments hold the index
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        ix_bytes = db.tablets["embedding"].vector_ivf().nbytes
+        if not db.tablets.offload("embedding"):
+            raise AssertionError("the vector tablet did not offload")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated(dev)
+        again_ms = similar("quantized", "score_int8", sim["quant"],
+                           "quantized tier after an offload")
+        similar("exact", "score_dot", sim["exact"],
+                "exact tier after an offload")
+        ix = db.tablets["embedding"].vector_ivf()
+        if ix is None or ix.device != dev:
+            raise AssertionError("the reloaded index is not on the card")
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated(dev)
+    finally:
+        ivf.score_int8_lists = kernels.score_int8_lists
+        knn.score_dot = kernels.score_dot
+    launches["score_int8"] = 2 * len(lits)
+    launches["score_dot"] = 2 * len(lits)
+    cold["int8"], cold["dot"] = last["int8"], last["dot"]
+    log(f"similar_to through the store, {len(lits)} requests a pass, k "
+        f"{SIMILAR_K}: the quantized tier one score_int8_lists launch a "
+        f"request and no calibration (the index came from the blob), "
+        f"p50 {pct(quant_ms, 50):.3f} ms p99 {pct(quant_ms, 99):.3f}; the "
+        f"exact tier one score_dot launch a request, p50 "
+        f"{pct(exact_ms, 50):.3f} ms; each answer equal to phase 29's; "
+        f"offloading the vector tablet moved memory_allocated "
+        f"{mem0} -> {mem1} bytes (its index {ix_bytes}); reloaded, both "
+        f"tiers answer the same with the same launches (memory_allocated "
+        f"{mem2}), quantized p50 {pct(again_ms, 50):.3f} ms (host clock) | "
+        f"{card}")
+
+    # allofterms over the lazily loaded label tablet
+    and_device = setops.bitmap_and_device
+
+    def rec_and(mats, device=None):
+        last["mats"] = (mats, device)
+        return and_device(mats, device)
+
+    setops.bitmap_and_device = rec_and
+    try:
+        db.tablets.offload("label")
+        for words, want in state["labels"].items():
+            text = '{ q(func: allofterms(label, "%s")) { uid } }' % words
+            ms = []
+            for r in range(COLD_AND_REPS):
+                out, t = counted_query(db, kernels, text, "bitmap_and", 1,
+                                       f"allofterms {words} run {r}")
+                ms.append(t)
+                if [int(x["uid"], 16) for x in out["q"]] != want:
+                    raise AssertionError(f"allofterms {words} from the "
+                                         f"store != phase 30's answer")
+            launches["bitmap_and"] += COLD_AND_REPS
+            if len(words.split()) == 2:
+                cold["mats"] = last["mats"]
+            log(f"allofterms(label, \"{words}\") x {COLD_AND_REPS} from the "
+                f"store: {len(want)} uids = phase 30's = the numpy oracle, "
+                f"one bitmap_and launch a query, p50 {pct(ms, 50):.3f} ms "
+                f"(host clock) | {card}")
+    finally:
+        setops.bitmap_and_device = and_device
+    cold["launches"] = launches
+    # the export walks every tablet, which phase 42's backup then finds
+    # resident
+    t0 = time.perf_counter()
+    if line_digests(export_rdf(db)) != cold["digests"]:
+        raise AssertionError("export_rdf of the reopened store != the "
+                             "source's")
+    log(f"export_rdf of the reopened store equal to the source's, line for "
+        f"line after a sort, in {time.perf_counter() - t0:.2f} s | {card}")
+    return db
+
+
+def cold_backup(dev, card: str, state: dict, cold: dict, db,
+                work: str) -> None:
+    """Phase 42: backup, incremental backup, restore, restore_to_ts."""
+    from dgraph_tpu_torch import wire
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.ops import ivf, kernels
+    from dgraph_tpu_torch.storage import backup, snapshot
+
+    dest = "file://" + os.path.join(work, "bk")
+    t0 = time.perf_counter()
+    e1 = backup.backup(db, dest)
+    full_s = time.perf_counter() - t0
+    first = tablet_dumps(db, wire, snapshot)
+    db.mutate(set_nquads=f'<{LABEL_UID0 + LABEL_NODES:#x}> <label> '
+                         f'"w0 w1 cold" .')
+    t0 = time.perf_counter()
+    e2 = backup.backup(db, dest)
+    inc_s = time.perf_counter() - t0
+    if e1["type"] != "full" or e2["type"] != "incremental" or \
+            e2["predicates"] != ["label"]:
+        raise AssertionError(f"backup chain {e1['type']} {e2['type']} "
+                             f"{e2['predicates']}")
+    final = tablet_dumps(db, wire, snapshot)
+    db.close()
+    build = ivf.build
+    ivf.build = None            # nothing below may train an index
+    try:
+        t0 = time.perf_counter()
+        # static planner: the launch check pins the quantized tier
+        restored = backup.restore(dest, db=GraphDB(
+            device=dev, planner="static",
+            vec_index_min_rows=WRITE_VECS // 2))
+        restore_s = time.perf_counter() - t0
+        same_dumps("restore", tablet_dumps(restored, wire, snapshot), final)
+        t0 = time.perf_counter()
+        at = backup.restore_to_ts(dest, e1["read_ts"], device=dev)
+        pitr_s = time.perf_counter() - t0
+        same_dumps("restore_to_ts at the full backup",
+                   tablet_dumps(at, wire, snapshot), first)
+        del at
+        sim = state["similar"]
+        ms = []
+        for i, lit in enumerate(sim["lits"][:COLD_RESTORED_QUERIES]):
+            out, t = counted_query(restored, kernels, sim["root_q"] % (
+                SIMILAR_K, lit), "score_int8", 1, f"restored similar_to {i}")
+            if out["q"] != sim["quant"][i]:
+                raise AssertionError(f"restored similar_to {i} != phase 29's")
+            ms.append(t)
+        ix = restored.tablets["embedding"].vector_ivf()
+        if ix is None or ix.device != dev:
+            raise AssertionError("the restored index is not on the card")
+    finally:
+        ivf.build = build
+    cold["launches"]["score_int8"] += COLD_RESTORED_QUERIES
+    log(f"backup of the store engine to {dest[:7]}build/cold_plane/bk: full "
+        f"{full_s:.2f} s ({len(e1['predicates'])} predicates, read_ts "
+        f"{e1['read_ts']}), a commit, incremental {inc_s:.2f} s "
+        f"({e2['predicates']}); restore onto GraphDB(device=cuda:0, "
+        f"planner=static) "
+        f"{restore_s:.2f} s, every predicate's dump_tablet bytes equal to the"
+        f" source's; restore_to_ts({e1['read_ts']}) {pitr_s:.2f} s equal to "
+        f"the dumps at the full backup; the restored index on the card, "
+        f"{COLD_RESTORED_QUERIES} similar_to requests each one "
+        f"score_int8_lists launch and no training, equal to phase 29's, p50 "
+        f"{pct(ms, 50):.3f} ms | {card}")
+
+
+def cold_result_cache(dev, card: str, state: dict, cold: dict) -> None:
+    """Phase 40: the result cache on a reopened store engine."""
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.utils import metrics
+
+    db = cold_engine(cold["store"], dev, result_cache_entries=4096)
+    sim = state["similar"]
+    texts = [t for _, t, _ in golden_queries()] + \
+        [sim["root_q"] % (SIMILAR_K, lit) for lit in sim["lits"]]
+    runs = {}
+    hit_at = []
+    for kind in ("fill", "hit"):
+        before = metrics.counters_snapshot()
+        reset_launches(kernels)
+        outs, ms = [], []
+        for i, text in enumerate(texts):
+            h0 = metrics.get_counter("dgraph_result_cache_hits_total")
+            t0 = time.perf_counter()
+            outs.append(db.query(text)["data"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if metrics.get_counter("dgraph_result_cache_hits_total") > h0:
+                hit_at.append(i)
+        runs[kind] = (outs, ms, metrics.counters_delta(before),
+                      launches_of(kernels))
+    fills = runs["fill"][2].get("dgraph_result_cache_misses_total", 0)
+    hits = runs["hit"][2].get("dgraph_result_cache_hits_total", 0)
+    if runs["hit"][0] != runs["fill"][0] or hits != fills or hits <= 0 \
+            or any(runs["hit"][3].values()):
+        raise AssertionError(f"result cache: {hits} hits for {fills} fills, "
+                             f"hit-pass launches {runs['hit'][3]}")
+    json.dumps(runs["hit"][0])       # answers hold no tensors
+    text = '{ q(func: allofterms(label, "w0 w1")) { uid } }'
+    db.query(text)
+    before = metrics.counters_snapshot()
+    db.query(text)
+    new = LABEL_UID0 + LABEL_NODES + 1
+    db.mutate(set_nquads=f'<{new:#x}> <label> "w0 w1" .')
+    got = [int(x["uid"], 16) for x in db.query(text)["data"]["q"]]
+    delta = metrics.counters_delta(before)
+    if new not in got or delta.get("dgraph_result_cache_hits_total") != 1 \
+            or delta.get("dgraph_result_cache_invalidations_total", 0) <= 0:
+        raise AssertionError(f"a commit to label: {delta}, new uid served "
+                             f"{new in got}")
+    log(f"result cache (result_cache_entries=4096) on a reopened store "
+        f"engine (the default tablet budget): {len(texts)} requests (75 "
+        f"goldens, {len(sim['lits'])} similar_to) twice: {fills:g} fills, then {hits:g} hits with "
+        f"answers equal to the fills' and zero kernel launches (fill pass "
+        f"{runs['fill'][3]}); a commit to label invalidated "
+        f"{delta.get('dgraph_result_cache_invalidations_total', 0):g} "
+        f"entries and the next allofterms answer holds the write; p50 of a "
+        f"miss {pct([runs['fill'][1][i] for i in hit_at], 50):.3f} ms, of a "
+        f"hit {pct([runs['hit'][1][i] for i in hit_at], 50):.3f} ms (host "
+        f"clock) | {card}")
+    db.close()
+
+
+def seed_500m(b5, store, groups: int, uids: int) -> tuple[int, int]:
+    """tools/bench_500m.py's seed() through the port's bulkseed: the same
+    generator, seeds and widths. Returns (edges, bytes)."""
+    from dgraph_tpu_torch.storage import bulkseed
+
+    schema = b5.schema_text(groups)
+    edges = nbytes = 0
+    fs, fd = min(b5.FOLLOW_SRCS, uids), b5.FOLLOW_DEG
+    for g in range(groups):
+        rng = np.random.default_rng(1000 + g)
+        base = np.uint64(g) * np.uint64(uids)
+        u = base + np.arange(1, uids + 1, dtype=np.uint64)
+        scores = rng.integers(0, b5.SCORE_DOMAIN, uids).astype(np.int64)
+        tcodes = rng.integers(0, len(b5.TIERS), uids).astype(np.int64)
+        rcodes = rng.integers(0, len(b5.REGIONS), uids).astype(np.int64)
+        indptr = np.arange(fs + 1, dtype=np.int64) * fd
+        dsts = (base + 1 + rng.integers(0, uids, fs * fd)
+                .astype(np.uint64)).reshape(fs, fd)
+        dsts.sort(axis=1)
+        dsts = dsts + np.arange(fd, dtype=np.uint64) * np.uint64(uids)
+        blobs = [
+            (f"score_{g}", bulkseed.int_tablet_blob(schema, u, scores, 1)),
+            (f"tier_{g}", bulkseed.str_tablet_blob(
+                schema, u, b5.TIERS, tcodes, 1)),
+            (f"region_{g}", bulkseed.str_tablet_blob(
+                schema, u, b5.REGIONS, rcodes, 1)),
+            (f"follow_{g}", bulkseed.uid_tablet_blob(
+                schema, u[:fs], indptr, dsts.reshape(-1), 1)),
+        ]
+        nbytes += bulkseed.seed_store(store, schema, blobs, max_ts=1)
+        edges += b5.group_edges(uids, fs, fd)
+    store.compact()
+    store.close()
+    return edges, nbytes
+
+
+def cold_500m(dev, card: str, work: str) -> None:
+    """Phase 41: tools/bench_500m.py's S1-S5 at its published widths."""
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.engine.lazy_tablets import TabletStore
+    from dgraph_tpu_torch.utils import metrics
+
+    b5 = bench_500m()
+    uids = b5.U_DEFAULT
+    path = os.path.join(work, "b500m")
+    t0 = time.perf_counter()
+    edges, nbytes = seed_500m(b5, TabletStore(path, dev), B500M_GROUPS, uids)
+    seed_s = time.perf_counter() - t0
+    gsel = sorted(np.random.default_rng(7).choice(
+        B500M_GROUPS, min(B500M_SAMPLE, B500M_GROUPS),
+        replace=False).tolist())
+    shape_names = list(b5.shapes(0))
+    # a group's three tablets hold about 87 approx bytes a uid (score 32,
+    # tier 29, region 26): a group and a half, below the sampled groups'
+    # working set
+    budget = 3 * 87 * uids // 2
+    db = GraphDB(store_dir=path, tablet_budget=budget, prefetch_workers=2,
+                 planner="adaptive", device=dev)
+    answers = {"cold": {}, "warm": {}, "fused": {}, "staged": {}}
+    walls, sizes = {}, {}
+    before = metrics.counters_snapshot()
+    for kind in ("cold", "warm"):
+        t0 = time.perf_counter()
+        for g in gsel:
+            for name, q in b5.shapes(g).items():
+                answers[kind][(g, name)] = b5._uids(db, q)
+            # the group's tablets are resident after its shapes ran
+            sizes.update({p: n for p, n in db.tablets._lru.items()
+                          if p.endswith(f"_{g}")})
+        walls[kind] = time.perf_counter() - t0
+    delta = metrics.counters_delta(before)
+    pf = db.prefetcher.stats()
+    working = sum(sizes.values())
+    times = {arm: {s: [] for s in shape_names} for arm in ("fused", "staged")}
+    evict0 = db.tablets.evictions
+    for arm in ("fused", "staged"):
+        db.prefer_fused = arm == "fused"
+        # group-major: a cyclic walk over more groups than the budget
+        # holds would reload every tablet on every repetition
+        for g in gsel:
+            for q in b5.shapes(g).values():
+                b5._uids(db, q)          # warm-up: tiles, memos
+            for _ in range(B500M_REPS):
+                for name, q in b5.shapes(g).items():
+                    t0 = time.perf_counter()
+                    answers[arm][(g, name)] = b5._uids(db, q)
+                    times[arm][name].append(time.perf_counter() - t0)
+    db.prefer_fused = True
+    fusion = {name: db.query(q, explain="plan")["extensions"]["explain"][
+        "blocks"][0].get("fusion") for name, q in b5.shapes(gsel[0]).items()}
+    arm_evictions = db.tablets.evictions - evict0
+    db.close()
+    oracle = GraphDB(store_dir=path, tablet_budget=budget,
+                     prefer_device=False, prefer_columnar=False,
+                     prefer_compressed=False, prefer_fused=False, device=dev)
+    t0 = time.perf_counter()
+    want = {k: b5._uids(oracle, b5.shapes(k[0])[k[1]])
+            for k in answers["fused"]}
+    oracle_s = time.perf_counter() - t0
+    oracle.close()
+    bad = [k for k in want if not (want[k] == answers["fused"][k]
+                                   == answers["staged"][k]
+                                   == answers["cold"][k]
+                                   == answers["warm"][k])]
+    if bad or delta.get("tablet_store_evictions", 0) <= 0 or \
+            len(sizes) != 3 * len(gsel) or working <= budget:
+        raise AssertionError(f"S1-S5: arms disagree at {bad[:4]}; "
+                             f"evictions {delta}; working set {working}")
+    log(f"S1-S5 (tools/bench_500m.py, U {uids}, score/tier/region of U "
+        f"postings, follow {b5.FOLLOW_SRCS} x {b5.FOLLOW_DEG}): seeded "
+        f"{B500M_GROUPS} groups, {edges} edges, {nbytes / 2**20:.1f} MiB of "
+        f"blobs through bulkseed and compacted in {seed_s:.2f} s; sampled "
+        f"groups {gsel} (default_rng(7)); tablet_budget {budget} against a "
+        f"working set of {working} approx bytes; cold pass {walls['cold']:.2f}"
+        f" s, warm pass {walls['warm']:.2f} s (stall share "
+        f"{max(0.0, walls['cold'] - walls['warm']) / walls['cold']:.4f}); "
+        f"loads +{delta.get('tablet_store_loads', 0):g}, evictions "
+        f"+{delta.get('tablet_store_evictions', 0):g} over both passes, "
+        f"{arm_evictions} in the arms; prefetch {pf}; fused, staged, cold, "
+        f"warm and the all-tiers-off postings oracle ({oracle_s:.2f} s) "
+        f"agree on all {len(want)} answers | {card}")
+    for name in shape_names:
+        f, s = times["fused"][name], times["staged"][name]
+        log(f"  {name}: fused p50 {pct(f, 50) * 1e3:.3f} ms p95 "
+            f"{pct(f, 95) * 1e3:.3f}, staged p50 {pct(s, 50) * 1e3:.3f} ms "
+            f"p95 {pct(s, 95) * 1e3:.3f} ({B500M_REPS} reps x {len(gsel)} "
+            f"groups, host clock); fusion {fusion[name]} | {card}")
+
+
+def cold_kernel_entries(dev, card: str, cold: dict) -> list[dict]:
+    """The kernels line's entries of the cold path, each kernel timed at
+    a store-backed engine's last call from a flushed L2 beside its plain
+    version, its bound and the library call."""
+    from dgraph_tpu_torch.ops import kernels
+
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    (codes, qs, table, out), kw = cold["int8"]
+    int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
+        codes, qs, table, out, **kw), 20, flush)
+    plain_out = torch.empty_like(out)
+    int8_plain = cuda_ms(lambda: kernels.score_int8_lists_reference(
+        codes, qs, table, plain_out, **kw), 3)
+    int8_err, ratio = lists_within_bound(codes, qs, table, out, plain_out,
+                                         kw, "score_int8_lists from the store")
+    int8_bound, int8_by = lists_bound_ms(codes, qs, table)
+    (corpus, qv), _ = cold["dot"]
+    dot_ms = device_ms_cold(lambda: kernels.score_dot(corpus, qv), 20, flush)
+    dot_plain = device_ms_cold(
+        lambda: kernels.score_dot_reference(corpus, qv), 20, flush)
+    dot_lib = device_ms_cold(lambda: torch.matmul(qv, corpus.T), 20, flush)
+    dot_err, dratio = check_score(kernels.score_dot,
+                                  kernels.score_dot_reference, corpus, qv,
+                                  "score_dot from the store")
+    dot_bound, dot_by = score_bound_ms([(corpus, qv)])
+    words_in, _ = cold["mats"]
+    mats = torch.from_numpy(np.stack([np.ascontiguousarray(
+        m, np.uint64) for m in words_in]).view(np.int64)).to(dev)
+    k, b, w = mats.shape
+    and_ms = device_ms_cold(lambda: kernels.bitmap_and(mats), 20, flush)
+    and_plain = device_ms_cold(lambda: kernels.bitmap_and_reference(mats), 20,
+                               flush)
+    and_lib = device_ms_cold(lambda: torch.bitwise_and(mats[0], mats[1]), 20,
+                             flush)
+    and_err = int((kernels.bitmap_and(mats)
+                   != kernels.bitmap_and_reference(mats)).sum())
+    if and_err:
+        raise AssertionError("bitmap_and != plain version from the store")
+    and_bound = (k + 1) * b * w * 8 / HBM_BYTES_PER_S * 1e3
+    del flush
+    launches = cold["launches"]
+    log(f"  the cold path's launches at their shapes (device times from a "
+        f"flushed L2): score_int8_lists ({len(table)} entries, worst error/"
+        f"bound {ratio:.4g}) {int8_ms:.4f} ms, plain {int8_plain:.4f}, bound "
+        f"{int8_bound:.5f} ({int8_by}); score_dot ({qv.shape[0]} x "
+        f"{corpus.shape[0]} x {corpus.shape[1]}, worst error/bound "
+        f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f}, torch.matmul "
+        f"{dot_lib:.4f}, bound {dot_bound:.4f} ({dot_by}); bitmap_and (k {k},"
+        f" B {b}, W {w}) {and_ms:.4f} ms, plain {and_plain:.4f}, "
+        f"torch.bitwise_and {and_lib:.4f}, bound {and_bound:.5f} (bytes); "
+        f"rollup's calibration launches {cold['rollup']['launches']} | "
+        f"{card}")
+    return [
+        {"name": "score_int8_lists", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/score.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:158", "path": "cold",
+         "launches": launches["score_int8"] + cold["rollup"]["launches"],
+         "max_abs_err": int8_err, "ms": int8_ms, "plain_ms": int8_plain,
+         "bound_ms": int8_bound, "bound_by": int8_by, "library_ms": None},
+        {"name": "score_dot", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/score.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123", "path": "cold",
+         "launches": launches["score_dot"], "max_abs_err": dot_err,
+         "ms": dot_ms, "plain_ms": dot_plain, "bound_ms": dot_bound,
+         "bound_by": dot_by, "library_ms": dot_lib},
+        {"name": "bitmap_and", "route": "cuda",
+         "source": "dgraph_tpu_torch/csrc/bitmap_and.cu",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:217", "path": "cold",
+         "launches": launches["bitmap_and"], "max_abs_err": and_err,
+         "ms": and_ms, "plain_ms": and_plain, "bound_ms": and_bound,
+         "bound_by": "bytes", "library_ms": and_lib},
+    ]
 
 
 # -- the vector search plane (phases 8-12) ----------------------------------

@@ -31,10 +31,12 @@ there, and every device tier of the query path runs there.
 (`device_cache.device_sharded_adjacency`), and similar_to onto its
 sharded tiers.
 
-Later slices lift the seams this one leaves; each raises
-NotImplementedError naming its slice (ROADMAP Queue 1):
-  item 9, cold storage: `store_dir` (and `checkpoint`),
-    `result_cache_entries`, `prefetch_workers`.
+`store_dir` keeps the tablets in a store on disk (engine/lazy_tablets)
+and materializes each on the engine's device when a request reaches it,
+under `tablet_budget` host bytes; `checkpoint` and `close` persist it.
+`result_cache_entries` caches whole responses (engine/result_cache),
+and `prefetch_workers` decodes stored tablets ahead of the blocks that
+read them (engine/prefetch), as the reference's.
 """
 
 from __future__ import annotations
@@ -63,11 +65,6 @@ from dgraph_tpu_torch.utils.tracing import bind_request, span as _span
 
 # measured device dispatch RTT per device (device_dispatch_seconds)
 _DISPATCH_SECONDS: dict[str, float] = {}
-
-
-def _later_slice(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item}, {name})")
 
 
 def _skel_of(plan) -> str:
@@ -179,11 +176,6 @@ class GraphDB:
         from dgraph_tpu_torch.ops.codec import DecodeScratch
         from dgraph_tpu_torch.query.plan import PlanCache
 
-        for opt, used in (("store_dir", store_dir is not None),
-                          ("result_cache_entries", result_cache_entries),
-                          ("prefetch_workers", prefetch_workers)):
-            if used:
-                raise _later_slice(opt, 9, "cold storage and ingest")
         # where tablets build their tiles and vector indexes
         self.device = resolve_device(device)
         self.schema = SchemaState()
@@ -195,7 +187,29 @@ class GraphDB:
         self.plan_cache = PlanCache(plan_cache_size) \
             if plan_cache_size else None
         self.coordinator = Coordinator()
-        self.tablets: dict[str, Tablet] = {}
+        self.tablet_store = None
+        if store_dir is not None:
+            # disk-backed mode: tablet base state lives in the store and
+            # materializes per predicate on demand, on this engine's
+            # device, evicting LRU under tablet_budget (the Badger
+            # role, posting/mvcc.go:143 — datasets larger than RAM load
+            # and serve). See engine/lazy_tablets.py.
+            from dgraph_tpu_torch.engine.lazy_tablets import (
+                TabletMap, TabletStore,
+            )
+            self.tablet_store = TabletStore(store_dir, self.device)
+            text = self.tablet_store.load_schema()
+            if text:
+                self.schema.apply_text(text)
+            self.tablets: dict[str, Tablet] = TabletMap(
+                self, self.tablet_store, tablet_budget)
+            for pred in self.tablets.stored:
+                self.coordinator.should_serve(pred)
+            # resume timestamps past the persisted base state (reads
+            # below a reloaded tablet's base_ts are stale snapshots)
+            self.coordinator.observe_ts(self.tablet_store.load_max_ts())
+        else:
+            self.tablets = {}
         self.prefer_device = prefer_device
         self.device_min_edges = device_min_edges
         # columnar scan tier switch: False pins every read to the
@@ -249,7 +263,18 @@ class GraphDB:
         # more than the host pipeline) staged
         self.prefer_fused = prefer_fused
         self.fused_min_rows = fused_min_rows
+        # async cold-store prefetch (engine/prefetch.py): a bounded
+        # worker pool decodes stored tablet blobs announced by the
+        # executor before block execution reaches them. 0 (the
+        # default) disables — every store load stays synchronous and
+        # the query path takes zero new branches. Opt-in because it
+        # only pays on store-backed engines whose working set exceeds
+        # tablet_budget
         self.prefetcher = None
+        if prefetch_workers and self.tablet_store is not None:
+            from dgraph_tpu_torch.engine.prefetch import PrefetchPool
+            self.prefetcher = PrefetchPool(self.tablet_store,
+                                           workers=prefetch_workers)
         # bounded per-thread scratch arena the compressed kernels
         # decode into (results are always fresh; see DecodeScratch)
         self.decode_scratch = DecodeScratch()
@@ -319,11 +344,31 @@ class GraphDB:
         # {"op": "subscribe"} wire op (cluster/service.py).
         from dgraph_tpu_torch.cdc.changelog import CdcPlane
         self.cdc = CdcPlane()
+        # CDC-invalidated result cache (engine/result_cache.py): full
+        # serialized responses keyed on the plan skeleton, invalidated
+        # per predicate by the local change log's observer. 0 (the
+        # default) disables: the query path takes zero new branches.
         self.result_cache = None
+        if result_cache_entries:
+            from dgraph_tpu_torch.engine.result_cache import ResultCache
+            self.result_cache = ResultCache(result_cache_entries)
+            self.cdc.on_invalidate = self.result_cache.invalidate
         self.wal = Wal(wal_path, key=enc_key) if wal_path else None
         # optional record sink: Raft replication taps the same durable
         # record stream the WAL gets (cluster/replica.py)
         self.on_record = None
+        # observed-cost persistence: a store-backed engine reloads the
+        # coststore's stage-duration table at boot (merge, never
+        # truncate) and saves at checkpoint/close, so the planner's
+        # observations survive restarts. The table is process-global
+        # (spans carry no engine identity): at most one store-backed
+        # engine per process, or their files cross-pollinate
+        self._coststore_path = None
+        if store_dir is not None:
+            import os as _os
+            self._coststore_path = _os.path.join(store_dir,
+                                                 "coststore.json")
+            coststore.load(self._coststore_path)
         if self.wal:
             self._replay()
 
@@ -991,14 +1036,42 @@ class GraphDB:
         """Flush and close the WAL (the reference's alpha shutdown
         closes its Badger stores); the engine object stays usable in
         memory but stops persisting."""
+        if self._coststore_path is not None:
+            try:
+                coststore.save(self._coststore_path)
+            except OSError:
+                pass  # stats are advisory; shutdown must not fail
+            self._coststore_path = None
+        if self.prefetcher is not None:
+            # stop the decode workers BEFORE the store closes
+            self.prefetcher.close()
+            self.prefetcher = None
+        if self.tablet_store is not None:
+            self.tablets.flush_all()
+            self.tablet_store.close()
+            self.tablet_store = None
+            # the TabletMap must not outlive its store (a lazy load on
+            # a closed store would read a closed WAL): degrade to a
+            # plain dict of whatever is resident — stored-only
+            # predicates are no longer reachable after close
+            self.tablets = {p: t for p, t in dict.items(self.tablets)}
         if self.wal:
             self.wal.close()
             self.wal = None
 
     def checkpoint(self):
-        """Store-backed mode's durability point (store_dir)."""
-        raise _later_slice("checkpoint() (store_dir)", 9,
-                           "cold storage and ingest")
+        """Store-backed mode: persist every resident tablet + schema
+        and compact the store (one snapshot, an empty log). The
+        durability point a serving deployment calls periodically."""
+        if self.tablet_store is None:
+            raise RuntimeError("checkpoint() needs store_dir")
+        self.tablets.flush_all()
+        self.tablet_store.compact()
+        if self._coststore_path is not None:
+            try:
+                coststore.save(self._coststore_path)
+            except OSError:
+                pass
 
     def fast_forward_ts(self, max_ts: int):
         """Advance the ts counter past replayed/replicated commits."""
@@ -1020,12 +1093,43 @@ class GraphDB:
         """(cache key, predicate footprint) when this request may
         serve from / fill the result cache, else (None, None).
 
-        The result cache (`result_cache_entries`) is cold storage's
-        (ROADMAP Queue 1 item 9) and raises at construction, so every
-        request of this port bypasses it here."""
-        if self.result_cache is None:
+        Eligible: best-effort reads (watermark reads, and the
+        follower-read path's explicitly pinned `read_ts` — the shared
+        per-window grant makes those keys collide across requests,
+        which is the point). Bypassed: txn reads (their snapshot is
+        the txn's, not a shared class), strict reads (they allocate a
+        fresh ts), explain (annotations vary per execution), schema
+        introspection, expand() blocks (the predicate footprint is
+        unknowable from the skeleton) and unhashable params."""
+        rc = self.result_cache
+        if rc is None or txn is not None or explain is not None \
+                or not best_effort or self.plan_cache is None:
             return None, None
-        raise _later_slice("the result cache", 9, "cold storage and ingest")
+        from dgraph_tpu_torch.engine.result_cache import query_predicates
+        from dgraph_tpu_torch.query.plan import skeleton
+
+        parsed, _struct, skel = self.plan_cache.parse(q, variables)
+        if parsed.schema_request is not None \
+                or getattr(parsed, "explain", ""):
+            return None, None
+
+        def has_expand(g) -> bool:
+            return bool(getattr(g, "expand", "")) \
+                or any(has_expand(c) for c in g.children)
+
+        if any(has_expand(gq) for gq in parsed.queries):
+            return None, None
+        preds = {p.lstrip("~") for p in query_predicates(parsed)}
+        if not preds:
+            return None, None  # uid-only: nothing to invalidate on
+        struct, params = skeleton(parsed)
+        try:
+            hash(params)
+        except TypeError:
+            return None, None
+        kind = ("ts", int(read_ts)) if read_ts is not None else ("be",)
+        return (mode, skel, struct, params, kind,
+                self.schema_epoch), preds
 
     def _result_cache_gen(self, key):
         """Fill-race guard generation for a ("be",) keyed entry: a
@@ -1565,7 +1669,8 @@ class GraphDB:
             "schemaEpoch": self.schema_epoch,
             "tablets": tablets,
             "cdc": self.cdc.stats(),
-            "resultCache": None,
+            "resultCache": self.result_cache.stats()
+            if self.result_cache is not None else None,
             "cost": coststore.summary(),
             "costStore": coststore.stats(),
             "deviceCache": self.device_cache.stats(),
@@ -1573,5 +1678,6 @@ class GraphDB:
             if self.plan_cache is not None else None,
             "planner": self.planner_impl.stats()
             if self.planner_impl is not None else {"mode": "static"},
-            "prefetch": None,
+            "prefetch": self.prefetcher.stats()
+            if self.prefetcher is not None else None,
         }

@@ -5,9 +5,10 @@ tests/test_coststore.py run through both packages with equal summaries
 process's clock), and a table saved by either loads into the other with
 equal summaries.
 
-Not yet run by the port: the engine's coststore persistence across a
-restart, which needs `GraphDB(store_dir=...)` (ROADMAP Queue 1 item 9,
-cold storage)."""
+A store-backed engine (`GraphDB(store_dir=...)`) saves the table at
+close and loads it at open in both packages, with equal summaries, and
+a close-then-reopen in one process does not count its observations
+twice."""
 
 import json
 
@@ -187,3 +188,44 @@ def test_global_store_is_always_on():
         pass
     assert tcs.stats()["observations"] == 1
     tcs.reset()
+
+
+def _restart(pkg, tmp_path):
+    """A store-backed engine's observations survive a restart: saved
+    at close, loaded at open (tests/test_coststore.py's two engine
+    cases)."""
+    import dgraph_tpu.native
+    from dgraph_tpu.engine.db import GraphDB as JDB
+    from dgraph_tpu_torch.engine.db import GraphDB as TDB
+
+    cs_mod, _, _ = PKGS[pkg]
+    G, kw = (JDB, {}) if pkg == "ref" else (TDB, {"device": "cpu"})
+    d = tmp_path / pkg
+    orig = dgraph_tpu.native.available
+    dgraph_tpu.native.available = lambda: False
+    try:
+        cs_mod.reset()
+        db = G(store_dir=str(d), prefer_device=False, **kw)
+        db.alter(schema_text="name: string @index(exact) .")
+        db.mutate(set_nquads='<0x1> <name> "a" .')
+        db.query('{ q(func: has(name)) { name } }')
+        db.close()
+        seen = cs_mod.stats()["observations"]
+        saved = (d / "coststore.json").exists()
+        db = G(store_dir=str(d), prefer_device=False, **kw)   # no reset
+        same = cs_mod.stats()["observations"]
+        db.close()
+        cs_mod.reset()
+        db = G(store_dir=str(d), prefer_device=False, **kw)
+        loaded = cs_mod.stats()["observations"]
+        keys = sorted((e["stage"], e["tier"]) for e in cs_mod.summary())
+        db.close()
+        return seen > 0, saved, same == seen, 0 < loaded <= seen, keys
+    finally:
+        dgraph_tpu.native.available = orig
+        cs_mod.reset()
+
+
+def test_engine_persists_coststore_across_restart_alike(tmp_path):
+    assert both(lambda pkg: _restart(pkg, tmp_path))[:4] == \
+        (True, True, True, True)

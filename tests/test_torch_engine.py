@@ -22,10 +22,11 @@ is held in test_torch_query_golden and test_torch_query_paths).
 through both engines (test_lifted_seams_equal_the_reference; the mesh
 paths themselves are held in test_torch_sharded_engine).
 
-Not yet run by the port, with the slice each waits for (ROADMAP Queue
-1): `store_dir`, `checkpoint`, `result_cache_entries`,
-`prefetch_workers` (item 9). Each raises NotImplementedError naming its
-slice (test_seams_name_their_slice)."""
+The cold-storage options (`store_dir` with `tablet_budget`,
+`checkpoint`, `result_cache_entries`, `prefetch_workers`) run through
+both engines alike (test_cold_options_equal_the_reference; cold
+storage itself is held in test_torch_cold_storage, test_torch_backup
+and test_torch_ingest)."""
 
 import numpy as np
 import pytest
@@ -345,22 +346,70 @@ def _db():
     return db
 
 
-SEAMS = {
-    "store_dir": (lambda: TDB(plan_cache_size=0, store_dir="x",
-                              device="cpu"), "item 9"),
-    "result_cache": (lambda: TDB(plan_cache_size=0, result_cache_entries=4,
-                                 device="cpu"), "item 9"),
-    "prefetch": (lambda: TDB(plan_cache_size=0, prefetch_workers=2,
-                             device="cpu"), "item 9"),
-    "checkpoint": (lambda: _db().checkpoint(), "item 9"),
-}
+def _cold_store_dir(G, kw, d):
+    db = G(plan_cache_size=0, store_dir=str(d), tablet_budget=1, **kw)
+    db.alter("name: string @index(exact) .\nfriend: [uid] .")
+    db.mutate(set_nquads='<0x1> <name> "ada" .\n<0x1> <friend> <0x2> .\n'
+                         '<0x2> <name> "bob" .')
+    db.rollup_all(0)
+    db.close()
+    db = G(plan_cache_size=0, store_dir=str(d), **kw)
+    out = (sorted(db.tablets.keys()), db.query(
+        '{ q(func: eq(name, "ada")) { name friend { name } } }')["data"])
+    db.close()
+    return out, (d / "SNAPSHOT.py").exists(), (d / "WAL").read_bytes()
 
 
-@pytest.mark.parametrize("seam", sorted(SEAMS))
-def test_seams_name_their_slice(seam):
-    fn, item = SEAMS[seam]
-    with pytest.raises(NotImplementedError, match=item):
-        fn()
+def _cold_result_cache(G, kw, d):
+    db = G(plan_cache_size=4, result_cache_entries=4, **kw)
+    db.alter("name: string @index(exact) .")
+    db.mutate(set_nquads='<0x1> <name> "ada" .')
+    q = '{ q(func: eq(name, "ada")) { name } }'
+    outs = [db.query(q)["data"] for _ in range(3)]
+    db.mutate(set_nquads='<0x2> <name> "ada" .')
+    outs.append(db.query(q)["data"])
+    st = db.result_cache.stats()
+    return outs, st["entries"], st["capacity"], st["preds"]
+
+
+def _cold_prefetch(G, kw, d):
+    db = G(plan_cache_size=0, store_dir=str(d), **kw)
+    db.alter("name: string @index(exact) .\nfriend: [uid] .")
+    db.mutate(set_nquads='<0x1> <name> "ada" .\n<0x1> <friend> <0x2> .')
+    db.rollup_all(0)
+    db.close()
+    db = G(plan_cache_size=0, store_dir=str(d), prefetch_workers=2, **kw)
+    out = db.query('{ q(func: eq(name, "ada")) { friend { uid } } }')
+    st = db.prefetcher.stats()
+    db.close()
+    return out["data"], st["workers"], sorted(st), db.prefetcher
+
+
+def _cold_checkpoint(G, kw, d):
+    db = G(plan_cache_size=0, **kw)
+    with pytest.raises(RuntimeError) as e:
+        db.checkpoint()
+    db = G(plan_cache_size=0, store_dir=str(d), **kw)
+    db.mutate(set_nquads='<0x1> <name> "ada" .')
+    db.checkpoint()
+    wal = (d / "WAL").read_bytes()
+    db.close()
+    return str(e.value), wal
+
+
+COLD = {"store_dir": _cold_store_dir,
+        "result_cache": _cold_result_cache,
+        "prefetch": _cold_prefetch,
+        "checkpoint": _cold_checkpoint}
+
+
+@pytest.mark.parametrize("option", sorted(COLD))
+def test_cold_options_equal_the_reference(option, tmp_path, monkeypatch):
+    import dgraph_tpu.native
+    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    j = COLD[option](JDB, {}, tmp_path / "ref")
+    t = COLD[option](TDB, {"device": "cpu"}, tmp_path / "port")
+    assert t == j
 
 
 def _both():
