@@ -264,8 +264,7 @@ order 37, 38, 39, 42, 40, 41:
    equal to phase 29's answers; the vector tablet offloaded
    (memory_allocated before and after) and asked again alike;
    allofterms over the lazily loaded labels equal to phase 30's, one
-   bitmap_and launch a query; the store's export equal to the source's,
-   line for line after a sort;
+   bitmap_and launch a query;
 42. on 39's engine: a full backup to build/cold_plane/bk, a commit, an
    incremental backup; `restore` onto a fresh card engine and
    `restore_to_ts` at the full backup, dump_tablet bytes equal to the
@@ -277,11 +276,40 @@ order 37, 38, 39, 42, 40, 41:
 41. tools/bench_500m.py's S1-S5 at its widths (U 262,144 a group, follow
    16,384 x 448) over B500M_GROUPS seeded groups through bulkseed, under
    a budget below the sampled groups' working set with two prefetch
-   workers: cold and warm passes, fused and staged arms, and the
-   all-tiers-off postings oracle agree; p50 and p95 a shape.
+   workers: a cold pass, fused and staged arms, and the all-tiers-off
+   postings oracle agree; p50 and p95 a shape.
 
-The planes run in the order BFS, graph ops, write path, queries and
-cold storage, set algebra, vectors. Each
+The serving plane (`server/http`, `engine/batcher`, `server/grpc_api`,
+`cli`), after phase 36 and before the cold plane, serving the write
+plane's engine on the card:
+
+43. `serve(db, port=0)`: the 75 golden queries at scale 10 POSTed to
+   /query, each response's data equal to `query_json`'s in process; p50
+   and p99 of a request over HTTP beside in-process `query()` and
+   `query_json()`;
+44. similar_to over HTTP, SERVE_SIMILAR requests on the quantized and
+   the exact tier and SERVE_AND dense allofterms, one at a time: one
+   score_int8_lists, score_dot or bitmap_and launch a request and no
+   other kernel, answers equal to the same queries in process and to
+   phases 29-30; each kernel at a served request's shapes against its
+   plain version, bound and library call;
+45. `serve(batch_window_us=...)`: SERVE_BATCH identical concurrent
+   similar_to requests in one window execute once with one launch and
+   16 bodies equal byte for byte; SERVE_BATCH distinct bindings run one
+   after another on the leader, one launch each;
+46. 408 through X-Dgraph-Deadline-Ms under the `executor.level`
+   failpoint, 499 through /admin/cancel?traceId=, 429 under
+   max_pending=1, `dgraph_queries_shed_total` and
+   `dgraph_pending_queries` at /debug/prometheus_metrics;
+47. where `grpc` imports, `api.Dgraph/Query` over the same AlphaServer
+   (a golden and a similar_to request) equal to HTTP's; `python -m
+   dgraph_tpu_torch version`; an `alpha` child with no --device:
+   /alter, /mutate and /query over HTTP, its engine on the card (a new
+   compute app in nvidia-smi, tiles in /state's deviceCache), stopped
+   by SIGINT with exit 0.
+
+The planes run in the order BFS, graph ops, write path, queries,
+serving and cold storage, set algebra, vectors. Each
 figure is printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
@@ -2166,11 +2194,11 @@ def write_plane(dev, card: str) -> list[dict]:
     """Phases 22-26: the engine's write path (`engine/db.GraphDB` over
     `storage/`, `cdc/`, `wire/`) on the card, its WAL and snapshot in a
     scratch directory under build/; then phases 27-31, the query path,
-    on the same engine and state, and phases 37-42, the cold plane, on
-    its export. Returns the kernels line's entries of score_int8_lists as
-    rollup drives it, and of score_int8_lists, score_dot and bitmap_and
-    as queries drive them, on the write plane's engine and through the
-    store."""
+    on the same engine and state, phases 43-47, the serving plane, on the
+    same engine, and phases 37-42, the cold plane, on its export. Returns
+    the kernels line's entries of score_int8_lists as rollup drives it,
+    and of score_int8_lists, score_dot and bitmap_and as queries drive
+    them: in process, over HTTP and through the store."""
     import shutil
 
     work = os.path.join(REPO, "build", "write_plane")
@@ -2183,6 +2211,9 @@ def write_plane(dev, card: str) -> list[dict]:
         t0 = time.perf_counter()
         entries = query_plane(dev, card, state)
         log(f"query plane: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries += serving_plane(dev, card, state)
+        log(f"serving plane: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         entries += cold_plane(dev, card, state)
         log(f"cold plane: {time.perf_counter() - t0:.1f} s")
@@ -3150,6 +3181,524 @@ def recurse_and_shortest(db, cpu, card: str, kernels, metrics) -> None:
 
 # -- the cold plane (phases 37-42) ------------------------------------------
 
+SERVE_REPS = 3                     # HTTP and in-process passes of the goldens
+SERVE_SIMILAR = 64                 # similar_to requests a tier over HTTP
+SERVE_AND = 8                      # dense allofterms requests over HTTP
+SERVE_BATCH = 16                   # concurrent requests in one batcher window
+SERVE_WINDOW_US = 200_000          # the batcher's window
+CLI_NODES = 4096                   # the CLI child's graph: follows edges,
+CLI_EDGES = 32_768                 # past GraphDB's device_min_edges (1,024)
+                                   # and a frontier worth the device expand
+CLI_COMMITS = 16                   # AlphaServer._maybe_rollup's period
+
+
+def http_call(base: str, path: str, body: bytes = b"",
+              ctype: str = "application/dql", headers=None,
+              expect: int = 200, get: bool = False):
+    """One request; (decoded JSON or text, raw bytes). Any other status
+    than `expect`, or `errors` in a 200 body, fails the run: a CUDA
+    error inside a handler thread comes back as a 500."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if get else body,
+        headers={"Content-Type": ctype, **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    if status != expect:
+        raise AssertionError(f"{path}: HTTP {status}, expected {expect}: "
+                             f"{raw[:400]!r}")
+    try:
+        out = json.loads(raw)
+    except ValueError:
+        out = raw.decode()
+    if expect == 200 and isinstance(out, dict) and out.get("errors"):
+        raise AssertionError(f"{path}: errors in a 200 body: {out['errors']}")
+    return out, raw
+
+
+def serving_plane(dev, card: str, state: dict) -> list[dict]:
+    """Phases 43-47: the serving surfaces (`server/http`, `engine/
+    batcher`, `server/grpc_api`, `cli`) on the card, serving the write
+    plane's engine (its goldens at scale 10, embeddings and labels)
+    over HTTP and gRPC, and a CLI `alpha` child serving its own engine
+    on the card. Returns the kernels line's entries of score_int8_lists,
+    score_dot and bitmap_and as served requests drive them."""
+    from dgraph_tpu_torch.ops import kernels
+    from dgraph_tpu_torch.server.http import serve
+
+    db = state["db"]
+    servers = []
+    try:
+        t0 = time.perf_counter()
+        httpd, alpha = serve(db, port=0, block=False)
+        servers.append(httpd)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        serving_goldens(db, base, card)
+        log(f"serving plane, phase 43: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries = serving_kernels(db, dev, base, card, state, kernels)
+        log(f"serving plane, phase 44: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serving_batcher(db, card, state, kernels, servers)
+        log(f"serving plane, phase 45: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serving_robustness(db, base, alpha, card, servers)
+        log(f"serving plane, phase 46: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serving_grpc(base, alpha, card, state, kernels)
+        serving_cli(card)
+        log(f"serving plane, phase 47: {time.perf_counter() - t0:.1f} s")
+        return entries
+    finally:
+        for h in servers:
+            h.shutdown()
+            h.server_close()
+        # an AlphaServer keeps reads from folding overlays; the cold
+        # plane reads this engine in process again
+        db.__dict__.pop("rollup_in_read", None)
+
+
+def serving_goldens(db, base: str, card: str) -> None:
+    """Phase 43: the 75 goldens over HTTP against query_json in process;
+    p50 and p99 of a request over HTTP beside in-process query() and
+    query_json()."""
+    golden = golden_queries()
+    for name, text, _ in golden:
+        got, _ = http_call(base, "/query", text.encode())
+        want = json.loads(db.query_json(text))["data"]
+        if got["data"] != want:
+            raise AssertionError(f"{name} over HTTP != query_json in process")
+    lat = {"http": [], "query": [], "query_json": []}
+    for _ in range(SERVE_REPS):
+        for _, text, _ in golden:
+            t0 = time.perf_counter()
+            http_call(base, "/query", text.encode())
+            lat["http"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            db.query(text)
+            lat["query"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            db.query_json(text)
+            lat["query_json"].append((time.perf_counter() - t0) * 1e3)
+    log(f"serving: the {len(golden)} golden queries at scale {GOLDEN_SCALE} "
+        f"over HTTP (serve(db) on the write plane's engine, POST /query), "
+        f"each response's data equal to query_json's in process; "
+        f"{SERVE_REPS} passes, ms a request (host clock): " + "; ".join(
+            f"{k} p50 {pct(v, 50):.3f} p99 {pct(v, 99):.3f} sum of a pass "
+            f"{sum(v) / SERVE_REPS:.3f}" for k, v in lat.items())
+        + f"; the surface's p50 over query_json "
+        f"{pct(lat['http'], 50) - pct(lat['query_json'], 50):.3f} ms | {card}")
+
+
+def serving_kernels(db, dev, base: str, card: str, state: dict,
+                    kernels) -> list[dict]:
+    """Phase 44: similar_to over HTTP on the quantized and exact tiers and
+    dense allofterms, one kernel launch a request; each kernel at a served
+    request's shapes against its plain version, bound and library call."""
+    from dgraph_tpu_torch.ops import ivf, knn, setops
+
+    sim = state["similar"]
+    lits, root_q = sim["lits"][:SERVE_SIMILAR], sim["root_q"]
+    last = {}
+
+    def recorded(fn, key):
+        def run(*args, **kw):
+            last[key] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    and_device = setops.bitmap_and_device
+
+    def recorded_and(mats, device=None):
+        last["mats"] = (mats, device)
+        return and_device(mats, device)
+
+    lat = {}
+    ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
+    knn.score_dot = recorded(kernels.score_dot, "dot")
+    setops.bitmap_and_device = recorded_and
+    quantized = db.vec_quantized
+    try:
+        for tier, name, key in (("quantized", "score_int8", "quant"),
+                                ("exact", "score_dot", "exact")):
+            db.vec_quantized = tier == "quantized"
+            lat[tier] = []
+            for i, lit in enumerate(lits):
+                text = root_q % (SIMILAR_K, lit)
+                reset_launches(kernels)
+                t0 = time.perf_counter()
+                got, _ = http_call(base, "/query", text.encode())
+                lat[tier].append((time.perf_counter() - t0) * 1e3)
+                only_launched(f"HTTP similar_to, {tier} tier, request {i}",
+                              launches_of(kernels), name, 1)
+                want = json.loads(db.query_json(text))["data"]
+                if got["data"] != want or \
+                        [r["uid"] for r in got["data"]["q"]] != \
+                        [r["uid"] for r in sim[key][i]]:
+                    raise AssertionError(f"HTTP similar_to, {tier} tier, "
+                                         f"request {i}: other answers than "
+                                         f"in process")
+        words = "w0 w1"
+        text = '{ q(func: allofterms(label, "%s")) { uid } }' % words
+        lat["allofterms"] = []
+        for i in range(SERVE_AND):
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            got, _ = http_call(base, "/query", text.encode())
+            lat["allofterms"].append((time.perf_counter() - t0) * 1e3)
+            only_launched(f"HTTP allofterms request {i}",
+                          launches_of(kernels), "bitmap_and", 1)
+            if [int(r["uid"], 16) for r in got["data"]["q"]] != \
+                    state["labels"][words]:
+                raise AssertionError("HTTP allofterms != phase 30's uids")
+    finally:
+        db.vec_quantized = quantized
+        ivf.score_int8_lists = kernels.score_int8_lists
+        knn.score_dot = kernels.score_dot
+        setops.bitmap_and_device = and_device
+    log(f"serving: {len(lits)} similar_to requests a tier and {SERVE_AND} "
+        f"allofterms(label, \"{words}\") over HTTP, one at a time: one "
+        f"score_int8_lists (quantized), score_dot (exact) or bitmap_and "
+        f"launch a request and no other kernel, answers equal to the same "
+        f"queries in process and to phases 29-30; ms a request (host "
+        f"clock): " + "; ".join(f"{k} p50 {pct(v, 50):.3f} p99 "
+                                f"{pct(v, 99):.3f}" for k, v in lat.items())
+        + f" | {card}")
+
+    return path_kernel_entries(
+        dev, card, last, {"score_int8": len(lits), "score_dot": len(lits),
+                          "bitmap_and": SERVE_AND},
+        "serving", "a served request (POST /query -> "
+        "AlphaServer.handle_query_json)")
+
+
+def fan_out(base: str, texts: list[str]) -> list[bytes]:
+    """POST each text from its own thread, the threads started 2 ms
+    apart (the server's listen backlog is 5 connections), all inside
+    one batcher window; the raw bodies in order."""
+    import threading
+
+    out = [None] * len(texts)
+    errors = []
+
+    def go(i, text):
+        try:
+            out[i] = http_call(base, "/query", text.encode())[1]
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=go, args=(i, t))
+               for i, t in enumerate(texts)]
+    for t in threads:
+        t.start()
+        time.sleep(0.002)
+    for t in threads:
+        t.join(timeout=120)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"batched requests failed: {errors[:2]}")
+    return out
+
+
+def serving_batcher(db, card: str, state: dict, kernels, servers) -> None:
+    """Phase 45: SERVE_BATCH concurrent similar_to requests inside one
+    MicroBatcher window: identical ones execute once with one launch;
+    distinct bindings run one after another on the leader."""
+    import threading
+
+    from dgraph_tpu_torch.query.plan import PlanCache
+    from dgraph_tpu_torch.server.http import serve
+    from dgraph_tpu_torch.utils import metrics
+
+    httpd, _ = serve(db, port=0, block=False,
+                     batch_window_us=SERVE_WINDOW_US)
+    servers.append(httpd)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    sim = state["similar"]
+    runs = []
+    inner = db.query_json
+
+    def counted(*a, **kw):
+        runs.append(threading.get_ident())
+        return inner(*a, **kw)
+
+    def round_of(texts):
+        runs.clear()
+        reset_launches(kernels)
+        before = metrics.counters_snapshot()
+        bodies = fan_out(base, texts)
+        delta = metrics.counters_delta(before)
+        return bodies, launches_of(kernels), delta.get("batch_dispatches", 0)
+
+    # batches group by plan-cache key: the write plane's engine runs
+    # without a plan cache, so one stands in for this phase
+    plan_cache = db.plan_cache
+    db.plan_cache = PlanCache(128)
+    db.vec_quantized = True
+    db.query_json = counted
+    try:
+        same = [sim["root_q"] % (SIMILAR_K, sim["lits"][0])] * SERVE_BATCH
+        bodies, launched, dispatches = round_of(same)
+        if len(runs) != 1 or len(set(bodies)) != 1 or dispatches != 1:
+            raise AssertionError(f"{SERVE_BATCH} identical requests: "
+                                 f"{len(runs)} executions, {len(set(bodies))}"
+                                 f" distinct bodies, {dispatches} dispatches")
+        only_launched("identical batched requests", launched, "score_int8", 1)
+        distinct = [sim["root_q"] % (SIMILAR_K, lit)
+                    for lit in sim["lits"][:SERVE_BATCH]]
+        dbodies, dlaunched, ddispatches = round_of(distinct)
+        leaders = len(set(runs))
+        only_launched("distinct batched requests", dlaunched, "score_int8",
+                      SERVE_BATCH)
+        if len(runs) != SERVE_BATCH or leaders > ddispatches:
+            raise AssertionError(f"{SERVE_BATCH} distinct requests: "
+                                 f"{len(runs)} executions on {leaders} "
+                                 f"threads in {ddispatches} dispatches")
+    finally:
+        del db.query_json
+        db.plan_cache = plan_cache
+    for i, body in enumerate(dbodies):
+        got = json.loads(body)["data"]["q"]
+        if [r["uid"] for r in got] != [r["uid"] for r in sim["quant"][i]]:
+            raise AssertionError(f"batched request {i} != phase 29's answer")
+    log(f"serving: micro-batcher (serve(batch_window_us={SERVE_WINDOW_US})): "
+        f"{SERVE_BATCH} identical concurrent similar_to requests (quantized "
+        f"tier) in one window: 1 execution, 1 dispatch, launches {launched}, "
+        f"{SERVE_BATCH} bodies identical byte for byte; {SERVE_BATCH} "
+        f"distinct bindings: {len(runs)} executions one after another on "
+        f"{leaders} leader thread(s) in {ddispatches} dispatch(es), "
+        f"score_int8_lists launched {dlaunched['score_int8']} times, "
+        f"answers equal to phase 29's | {card}")
+
+
+def serving_robustness(db, base: str, alpha, card: str, servers) -> None:
+    """Phase 46: 408 through X-Dgraph-Deadline-Ms, 499 through
+    /admin/cancel, 429 under max_pending, and the shed and pending
+    metrics, with the executor.level failpoint slowing traversals."""
+    import threading
+
+    from dgraph_tpu_torch.server.http import serve
+    from dgraph_tpu_torch.utils import failpoint
+
+    text = golden_queries()[0][1]
+    got = {}
+
+    def held(url, key, expect, headers=None):
+        def go():
+            try:
+                got[key] = http_call(url, "/query", text.encode(),
+                                     headers=headers, expect=expect)[0]
+            except BaseException as e:  # noqa: BLE001 — checked below
+                got[key] = e
+        t = threading.Thread(target=go)
+        t.start()
+        return t
+
+    def wait_pending(a, n=1):
+        end = time.monotonic() + 30
+        while a.pending() < n and time.monotonic() < end:
+            time.sleep(0.005)
+        if a.pending() < n:
+            raise AssertionError("the held request never took its slot")
+
+    shed_httpd, shed_alpha = serve(db, port=0, block=False, max_pending=1)
+    servers.append(shed_httpd)
+    shed_base = f"http://127.0.0.1:{shed_httpd.server_address[1]}"
+    try:
+        failpoint.arm("executor.level", "sleep(0.3)")
+        t0 = time.perf_counter()
+        http_call(base, "/query", text.encode(),
+                  headers={"X-Dgraph-Deadline-Ms": "100"}, expect=408)
+        dl_ms = (time.perf_counter() - t0) * 1e3
+        t = held(base, "cancel", 499, {"X-Dgraph-Trace-Id": "serving-499"})
+        wait_pending(alpha)
+        http_call(base, "/admin/cancel?traceId=serving-499", b"")
+        t.join(timeout=60)
+        t = held(shed_base, "holder", 200)
+        wait_pending(shed_alpha)
+        http_call(shed_base, "/query", text.encode(), expect=429)
+        t.join(timeout=60)
+    finally:
+        failpoint.clear()
+    bad = {k: v for k, v in got.items() if isinstance(v, BaseException)}
+    if bad or set(got) != {"cancel", "holder"}:
+        raise AssertionError(f"held requests: {got}")
+    prom, _ = http_call(shed_base, "/debug/prometheus_metrics", get=True)
+    shed = [ln for ln in prom.splitlines()
+            if ln.startswith("dgraph_queries_shed_total")]
+    pending = [ln for ln in prom.splitlines()
+               if ln.startswith("dgraph_pending_queries")]
+    if not shed or float(shed[0].split()[-1]) < 1 or not pending:
+        raise AssertionError(f"metrics: shed {shed}, pending {pending}")
+    if failpoint.armed():
+        raise AssertionError("failpoints still armed")
+    log(f"serving: robustness on the card's engine: X-Dgraph-Deadline-Ms "
+        f"100 under executor.level sleep(0.3) -> 408 in {dl_ms:.1f} ms; "
+        f"/admin/cancel?traceId= -> 499; max_pending=1 with one request "
+        f"held -> 429, the held one 200; /debug/prometheus_metrics {shed[0]}"
+        f", {pending[0]}; failpoints cleared | {card}")
+
+
+def serving_grpc(base: str, alpha, card: str, state: dict, kernels) -> None:
+    """Phase 47, gRPC: `api.Dgraph/Query` (the protobuf service a dgo
+    client calls) over the same AlphaServer: a golden query and a
+    similar_to request, each equal to HTTP's answer."""
+    try:
+        import grpc
+
+        from dgraph_tpu_torch.proto import api_pb2 as pb
+        from dgraph_tpu_torch.server.grpc_api import serve_grpc
+    except ImportError as e:
+        log(f"serving: gRPC not run: {e} does not import on this host | "
+            f"{card}")
+        return
+    server, port = serve_grpc(alpha, port=0)
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        call = channel.unary_unary(
+            "/api.Dgraph/Query",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.Response.FromString)
+        sim = state["similar"]
+        alpha.db.vec_quantized = True
+        texts = [golden_queries()[1][1],
+                 sim["root_q"] % (SIMILAR_K, sim["lits"][1])]
+        for i, text in enumerate(texts):
+            reset_launches(kernels)
+            resp = call(pb.Request(query=text), timeout=120)
+            launched = launches_of(kernels)
+            if i == 1:
+                only_launched("gRPC similar_to", launched, "score_int8", 1)
+            want, _ = http_call(base, "/query", text.encode())
+            if json.loads(resp.json) != want["data"]:
+                raise AssertionError(f"gRPC request {i} != HTTP's answer")
+    finally:
+        channel.close()
+        server.stop(0)
+    log(f"serving: gRPC api.Dgraph/Query (grpc {grpc.__version__}) over the "
+        f"same AlphaServer: a golden query and a similar_to request (one "
+        f"score_int8_lists launch), each equal to HTTP's data | {card}")
+
+
+def compute_apps() -> list[str]:
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def serving_cli(card: str) -> None:
+    """Phase 47, the CLI: `python -m dgraph_tpu_torch version`, then an
+    `alpha` child with no --device: alter, mutate and query over HTTP,
+    its engine on the card (a new compute app holding memory, tiles
+    built), stopped with SIGINT."""
+    import signal
+    import socket
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    ver = subprocess.run([sys.executable, "-m", "dgraph_tpu_torch",
+                          "version"], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if ver.returncode != 0 or "dgraph-tpu" not in ver.stdout:
+        raise AssertionError(f"version: rc {ver.returncode} {ver.stderr}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    apps0 = compute_apps()
+    work = os.path.join(REPO, "build", "serving")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "alpha.log"), "w") as errf:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "dgraph_tpu_torch", "alpha", "--host",
+             "127.0.0.1", "--port", str(port)], cwd=REPO, env=env,
+            stdout=errf, stderr=subprocess.STDOUT)
+        try:
+            cli_alpha(child, port, apps0, t0, card)
+        finally:
+            if child.poll() is None:
+                child.send_signal(signal.SIGINT)
+            try:
+                rc = child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+                raise
+    if rc != 0:
+        raise AssertionError(f"alpha child exited {rc}: " + open(
+            os.path.join(work, "alpha.log")).read()[-2000:])
+    log(f"serving: `python -m dgraph_tpu_torch version`: "
+        f"{' / '.join(ver.stdout.split(chr(10))[:3])}; the alpha child "
+        f"stopped by SIGINT, exit 0 | {card}")
+
+
+def cli_alpha(child, port: int, apps0: list[str], t0: float,
+              card: str) -> None:
+    base = f"http://127.0.0.1:{port}"
+    end = time.monotonic() + 300
+    while True:
+        if child.poll() is not None:
+            raise AssertionError(f"alpha child exited {child.returncode}")
+        try:
+            http_call(base, "/health", get=True)
+            break
+        except (OSError, AssertionError):
+            if time.monotonic() > end:
+                raise
+            time.sleep(0.2)
+    up_s = time.perf_counter() - t0
+    http_call(base, "/alter", b"follows: [uid] @reverse .\n"
+              b"name: string @index(exact) .")
+    rng = np.random.default_rng(47)
+    src = rng.integers(1, CLI_NODES + 1, CLI_EDGES)
+    dst = rng.integers(1, CLI_NODES + 1, CLI_EDGES)
+    pairs = sorted(set(zip(src.tolist(), dst.tolist())))
+    rdf = [f'<{u:#x}> <name> "n{u}" .' for u in range(1, CLI_NODES + 1)] \
+        + [f"<{a:#x}> <follows> <{b:#x}> ." for a, b in pairs]
+    # CLI_COMMITS commits: the Alpha folds its overlays into the tablets'
+    # base every 16 commits (reads never fold), and the device tiles are
+    # built from the base
+    step = -(-len(rdf) // CLI_COMMITS)
+    for s in range(0, len(rdf), step):
+        http_call(base, "/mutate?commitNow=true",
+                  "\n".join(rdf[s:s + step]).encode(),
+                  ctype="application/rdf")
+    got, _ = http_call(base, "/query", b"{ q(func: has(follows)) "
+                       b"{ follows { uid } } }")
+    total = sum(len(r["follows"]) for r in got["data"]["q"])
+    out, _ = http_call(base, "/query", b'{ q(func: eq(name, "n1")) '
+                       b"{ follows { uid follows { uid } } ~follows { uid } } }")
+    want1 = sorted(b for a, b in pairs if a == 1)
+    hop1 = sorted(int(r["uid"], 16) for r in
+                  (out["data"]["q"][0].get("follows") or []))
+    st, _ = http_call(base, "/state", get=True)
+    tiles = st["deviceCache"]["tiles"]
+    apps = compute_apps()
+    mine = [a for a in apps if a.split(",")[0].strip() == str(child.pid)]
+    if total != len(pairs) or hop1 != want1 or tiles < 1 or \
+            not mine and len(apps) <= len(apps0):
+        raise AssertionError(f"alpha child: {total} edges of {len(pairs)}, "
+                             f"hop {hop1[:4]} vs {want1[:4]}, deviceCache "
+                             f"{st['deviceCache']}, compute apps {apps} "
+                             f"(before {apps0}), pid {child.pid}")
+    log(f"serving: `python -m dgraph_tpu_torch alpha --port {port}` (no "
+        f"--device) up in {up_s:.1f} s; /alter, /mutate of {CLI_NODES} "
+        f"names and {len(pairs)} follows edges, /query expands them all from "
+        f"every source and walks two hops both ways from one; /state deviceCache {st['deviceCache']}; "
+        f"nvidia-smi compute apps: the child's pid {child.pid} "
+        + (f"listed ({mine[0]})" if mine else
+           f"not listed under its own pid (the container's pid namespace "
+           f"differs): {len(apps0)} compute app(s) before it started, "
+           f"{len(apps)} with it up, {apps}") + f" | {card}")
+
+
 COLD_LIVE_SCALE = 1                # phase 37's live_load against bulk_load
 COLD_AND_REPS = 8                  # allofterms runs a word set, phase 39
 COLD_RESTORED_QUERIES = 16         # similar_to on the restored engine, 42
@@ -3170,14 +3719,6 @@ def bench_500m():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def line_digests(lines) -> list:
-    """Sorted sha1 digests of export lines: equal lists mean equal
-    exports line for line after a sort, at 20 bytes a line."""
-    import hashlib
-
-    return sorted(hashlib.sha1(ln.encode()).digest() for ln in lines)
 
 
 def counted_query(db, kernels, text: str, name: str, n: int, label: str):
@@ -3222,7 +3763,11 @@ def cold_plane(dev, card: str, state: dict) -> list[dict]:
         t0 = time.perf_counter()
         cold_500m(dev, card, work)
         log(f"cold plane, phase 41: {time.perf_counter() - t0:.1f} s")
-        return cold_kernel_entries(dev, card, cold)
+        launches = dict(cold["launches"])
+        # score_int8_lists also ran once a calibration step of the rollup
+        launches["score_int8"] += cold["rollup"]["launches"]
+        return path_kernel_entries(dev, card, cold, launches, "cold",
+                                   "the cold path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3255,7 +3800,6 @@ def cold_load(dev, card: str, state: dict, work: str, cold: dict) -> None:
         f.writelines(ln + "\n" for ln in lines if " <embedding> " not in ln)
     with open(paths["vectors"], "w") as f:
         f.writelines(ln + "\n" for ln in vec_lines)
-    cold["digests"] = line_digests(lines)
     cold["sizes"] = {p: src.tablets[p].approx_bytes() for p in preds}
     n_lines, n_vecs = len(lines), len(vec_lines)
     del lines, vec_lines
@@ -3396,7 +3940,6 @@ def cold_kernels(dev, card: str, state: dict, cold: dict):
     """Phase 39: similar_to and allofterms through the store."""
     import gc
 
-    from dgraph_tpu_torch.ingest import export_rdf
     from dgraph_tpu_torch.ops import ivf, kernels, knn, setops
 
     # the default budget holds the whole store: phase 42's backups walk
@@ -3500,14 +4043,6 @@ def cold_kernels(dev, card: str, state: dict, cold: dict):
     finally:
         setops.bitmap_and_device = and_device
     cold["launches"] = launches
-    # the export walks every tablet, which phase 42's backup then finds
-    # resident
-    t0 = time.perf_counter()
-    if line_digests(export_rdf(db)) != cold["digests"]:
-        raise AssertionError("export_rdf of the reopened store != the "
-                             "source's")
-    log(f"export_rdf of the reopened store equal to the source's, line for "
-        f"line after a sort, in {time.perf_counter() - t0:.2f} s | {card}")
     return db
 
 
@@ -3692,18 +4227,17 @@ def cold_500m(dev, card: str, work: str) -> None:
     budget = 3 * 87 * uids // 2
     db = GraphDB(store_dir=path, tablet_budget=budget, prefetch_workers=2,
                  planner="adaptive", device=dev)
-    answers = {"cold": {}, "warm": {}, "fused": {}, "staged": {}}
-    walls, sizes = {}, {}
+    answers = {"cold": {}, "fused": {}, "staged": {}}
+    sizes = {}
     before = metrics.counters_snapshot()
-    for kind in ("cold", "warm"):
-        t0 = time.perf_counter()
-        for g in gsel:
-            for name, q in b5.shapes(g).items():
-                answers[kind][(g, name)] = b5._uids(db, q)
-            # the group's tablets are resident after its shapes ran
-            sizes.update({p: n for p, n in db.tablets._lru.items()
-                          if p.endswith(f"_{g}")})
-        walls[kind] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for g in gsel:
+        for name, q in b5.shapes(g).items():
+            answers["cold"][(g, name)] = b5._uids(db, q)
+        # the group's tablets are resident after its shapes ran
+        sizes.update({p: n for p, n in db.tablets._lru.items()
+                      if p.endswith(f"_{g}")})
+    cold_s = time.perf_counter() - t0
     delta = metrics.counters_delta(before)
     pf = db.prefetcher.stats()
     working = sum(sizes.values())
@@ -3736,8 +4270,7 @@ def cold_500m(dev, card: str, work: str) -> None:
     oracle.close()
     bad = [k for k in want if not (want[k] == answers["fused"][k]
                                    == answers["staged"][k]
-                                   == answers["cold"][k]
-                                   == answers["warm"][k])]
+                                   == answers["cold"][k])]
     if bad or delta.get("tablet_store_evictions", 0) <= 0 or \
             len(sizes) != 3 * len(gsel) or working <= budget:
         raise AssertionError(f"S1-S5: arms disagree at {bad[:4]}; "
@@ -3747,13 +4280,11 @@ def cold_500m(dev, card: str, work: str) -> None:
         f"{B500M_GROUPS} groups, {edges} edges, {nbytes / 2**20:.1f} MiB of "
         f"blobs through bulkseed and compacted in {seed_s:.2f} s; sampled "
         f"groups {gsel} (default_rng(7)); tablet_budget {budget} against a "
-        f"working set of {working} approx bytes; cold pass {walls['cold']:.2f}"
-        f" s, warm pass {walls['warm']:.2f} s (stall share "
-        f"{max(0.0, walls['cold'] - walls['warm']) / walls['cold']:.4f}); "
+        f"working set of {working} approx bytes; cold pass {cold_s:.2f} s; "
         f"loads +{delta.get('tablet_store_loads', 0):g}, evictions "
-        f"+{delta.get('tablet_store_evictions', 0):g} over both passes, "
-        f"{arm_evictions} in the arms; prefetch {pf}; fused, staged, cold, "
-        f"warm and the all-tiers-off postings oracle ({oracle_s:.2f} s) "
+        f"+{delta.get('tablet_store_evictions', 0):g} over it, "
+        f"{arm_evictions} in the arms; prefetch {pf}; fused, staged, cold "
+        f"and the all-tiers-off postings oracle ({oracle_s:.2f} s) "
         f"agree on all {len(want)} answers | {card}")
     for name in shape_names:
         f, s = times["fused"][name], times["staged"][name]
@@ -3763,32 +4294,35 @@ def cold_500m(dev, card: str, work: str) -> None:
             f"groups, host clock); fusion {fusion[name]} | {card}")
 
 
-def cold_kernel_entries(dev, card: str, cold: dict) -> list[dict]:
-    """The kernels line's entries of the cold path, each kernel timed at
-    a store-backed engine's last call from a flushed L2 beside its plain
-    version, its bound and the library call."""
+def path_kernel_entries(dev, card: str, last: dict, launches: dict,
+                        path: str, label: str) -> list[dict]:
+    """The kernels line's entries of one path: score_int8_lists,
+    score_dot and bitmap_and, each timed at the path's last recorded
+    call (`last["int8"]`, `last["dot"]`, `last["mats"]`) from a flushed
+    L2 beside its plain version, its bound and the library call;
+    `launches` holds each kernel's launches on the path."""
     from dgraph_tpu_torch.ops import kernels
 
     flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
-    (codes, qs, table, out), kw = cold["int8"]
+    (codes, qs, table, out), kw = last["int8"]
     int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
         codes, qs, table, out, **kw), 20, flush)
     plain_out = torch.empty_like(out)
     int8_plain = cuda_ms(lambda: kernels.score_int8_lists_reference(
         codes, qs, table, plain_out, **kw), 3)
     int8_err, ratio = lists_within_bound(codes, qs, table, out, plain_out,
-                                         kw, "score_int8_lists from the store")
+                                         kw, f"score_int8_lists, {label}")
     int8_bound, int8_by = lists_bound_ms(codes, qs, table)
-    (corpus, qv), _ = cold["dot"]
+    (corpus, qv), _ = last["dot"]
     dot_ms = device_ms_cold(lambda: kernels.score_dot(corpus, qv), 20, flush)
     dot_plain = device_ms_cold(
         lambda: kernels.score_dot_reference(corpus, qv), 20, flush)
     dot_lib = device_ms_cold(lambda: torch.matmul(qv, corpus.T), 20, flush)
     dot_err, dratio = check_score(kernels.score_dot,
                                   kernels.score_dot_reference, corpus, qv,
-                                  "score_dot from the store")
+                                  f"score_dot, {label}")
     dot_bound, dot_by = score_bound_ms([(corpus, qv)])
-    words_in, _ = cold["mats"]
+    words_in, _ = last["mats"]
     mats = torch.from_numpy(np.stack([np.ascontiguousarray(
         m, np.uint64) for m in words_in]).view(np.int64)).to(dev)
     k, b, w = mats.shape
@@ -3800,11 +4334,10 @@ def cold_kernel_entries(dev, card: str, cold: dict) -> list[dict]:
     and_err = int((kernels.bitmap_and(mats)
                    != kernels.bitmap_and_reference(mats)).sum())
     if and_err:
-        raise AssertionError("bitmap_and != plain version from the store")
+        raise AssertionError(f"bitmap_and != plain version, {label}")
     and_bound = (k + 1) * b * w * 8 / HBM_BYTES_PER_S * 1e3
     del flush
-    launches = cold["launches"]
-    log(f"  the cold path's launches at their shapes (device times from a "
+    log(f"  {label}: the launches at their shapes (device times from a "
         f"flushed L2): score_int8_lists ({len(table)} entries, worst error/"
         f"bound {ratio:.4g}) {int8_ms:.4f} ms, plain {int8_plain:.4f}, bound "
         f"{int8_bound:.5f} ({int8_by}); score_dot ({qv.shape[0]} x "
@@ -3813,24 +4346,23 @@ def cold_kernel_entries(dev, card: str, cold: dict) -> list[dict]:
         f"{dot_lib:.4f}, bound {dot_bound:.4f} ({dot_by}); bitmap_and (k {k},"
         f" B {b}, W {w}) {and_ms:.4f} ms, plain {and_plain:.4f}, "
         f"torch.bitwise_and {and_lib:.4f}, bound {and_bound:.5f} (bytes); "
-        f"rollup's calibration launches {cold['rollup']['launches']} | "
-        f"{card}")
+        f"launches {launches} | {card}")
     return [
         {"name": "score_int8_lists", "route": "cuda",
          "source": "dgraph_tpu_torch/csrc/score.cu",
-         "replaces": "dgraph_tpu/ops/pallas_kernels.py:158", "path": "cold",
-         "launches": launches["score_int8"] + cold["rollup"]["launches"],
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:158", "path": path,
+         "launches": launches["score_int8"],
          "max_abs_err": int8_err, "ms": int8_ms, "plain_ms": int8_plain,
          "bound_ms": int8_bound, "bound_by": int8_by, "library_ms": None},
         {"name": "score_dot", "route": "cuda",
          "source": "dgraph_tpu_torch/csrc/score.cu",
-         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123", "path": "cold",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123", "path": path,
          "launches": launches["score_dot"], "max_abs_err": dot_err,
          "ms": dot_ms, "plain_ms": dot_plain, "bound_ms": dot_bound,
          "bound_by": dot_by, "library_ms": dot_lib},
         {"name": "bitmap_and", "route": "cuda",
          "source": "dgraph_tpu_torch/csrc/bitmap_and.cu",
-         "replaces": "dgraph_tpu/ops/pallas_kernels.py:217", "path": "cold",
+         "replaces": "dgraph_tpu/ops/pallas_kernels.py:217", "path": path,
          "launches": launches["bitmap_and"], "max_abs_err": and_err,
          "ms": and_ms, "plain_ms": and_plain, "bound_ms": and_bound,
          "bound_by": "bytes", "library_ms": and_lib},

@@ -51,8 +51,27 @@ Ported so far:
   uid-range-sharded adjacency with its expand, sharded and ring BFS,
   the (data, tablet, uid) query step and sharded similar_to, in one
   process (per-shard loops, collectives as copies between the shards'
-  devices); `GraphDB(mesh=...)` runs its sharded tiers on them.
+  devices); `GraphDB(mesh=...)` runs its sharded tiers on them;
+- cold storage and ingest: a tablet store larger than RAM under a byte
+  budget (`engine.lazy_tablets`, `storage.kvfallback`), read-ahead
+  (`engine.prefetch`), the CDC-invalidated result cache
+  (`engine.result_cache`), backups and point-in-time restore to local
+  or S3 URIs (`storage.backup`, `storage.uri`), bulk seeding
+  (`storage.bulkseed`) and the bulk, live, distributed, export and
+  conversion loaders (`ingest`); `GraphDB(store_dir=...)` serves from
+  a reopened store on the card;
+- the serving surfaces: the HTTP Alpha (`server.http`: `AlphaServer`,
+  `serve`), the query micro-batcher (`engine.batcher`), ACL, per-tenant
+  QoS, TLS and the debug mux (`server.acl`, `qos`, `tls`,
+  `debug_http`), the gRPC API with the reference's protobuf service
+  (`server.grpc_api`, `proto`), request contexts, the reader-writer
+  lock, the network fault plane, the sampling profiler, alerts and the
+  watchdog (`utils.reqctx`, `rwlock`, `netfault`, `pprof`, `alerts`,
+  `watchdog`) and the command line (`cli`;
+  `python -m dgraph_tpu_torch alpha` serves GraphQL± from the card).
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.
 """
+
+__version__ = "0.1.0"

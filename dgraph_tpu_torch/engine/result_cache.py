@@ -34,7 +34,8 @@ skip the cache entirely.
 
 Port of `dgraph_tpu/engine/result_cache.py`. The footprint comes from
 `query_predicates` below, the port's copy of the reference's
-`server/acl.query_predicates` and `block_predicates`.
+`server/acl.query_predicates` and `block_predicates`; the port's
+`server/acl` re-exports these two.
 """
 
 from __future__ import annotations

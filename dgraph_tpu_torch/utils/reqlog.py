@@ -118,9 +118,7 @@ def record(op: str, trace_id: str = "", latency_ms: float = 0.0,
 
 def outcome_of(exc: BaseException) -> str:
     """Classify a request-killing exception for the log (the serving
-    edges share this so HTTP and gRPC report identical outcomes).
-    utils/reqctx comes with the serving surfaces (ROADMAP Queue 1 item
-    10); nothing calls this before then."""
+    edges share this so HTTP and gRPC report identical outcomes)."""
     from dgraph_tpu_torch.utils.reqctx import (
         Cancelled, DeadlineExceeded, Overloaded,
     )

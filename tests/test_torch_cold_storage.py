@@ -24,16 +24,13 @@ on both packages instead.
 
 from __future__ import annotations
 
-import functools
 import gzip
 import http.server
 import importlib
 import inspect
 import json
 import os
-import sys
 import threading
-import types
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +55,7 @@ from dgraph_tpu_torch.storage import snapshot as tsnap
 from dgraph_tpu_torch.storage import uri as turi
 from dgraph_tpu_torch.storage.wal import _PyWal
 from dgraph_tpu_torch.utils import metrics as tmetrics
+from tests.torch_twins import CpuGraphDB, bind_port
 
 # counters both passes of a reference test must move alike
 COUNTERS = ("tablet_store_loads", "tablet_store_evictions",
@@ -67,94 +65,6 @@ COUNTERS = ("tablet_store_loads", "tablet_store_evictions",
 
 
 # -- running a reference test through both packages --------------------------
-
-
-class CpuGraphDB(TDB):
-    """The port's GraphDB, on the CPU unless told otherwise."""
-
-    def __init__(self, *args, device="cpu", **kw):
-        super().__init__(*args, device=device, **kw)
-
-
-def _port_module_name(name: str) -> str:
-    return "dgraph_tpu_torch" + name[len("dgraph_tpu"):]
-
-
-def _port_module(name: str):
-    try:
-        return importlib.import_module(_port_module_name(name))
-    except ImportError:
-        return None
-
-
-def _on_cpu(obj):
-    """`obj` as a test of the port receives it: GraphDB and every
-    function that takes a `device` default to the CPU."""
-    if obj is TDB:
-        return CpuGraphDB
-    if inspect.isfunction(obj) and \
-            "device" in inspect.signature(obj).parameters:
-        return _cpu_kw(obj)
-    return obj
-
-
-def _cpu_kw(fn):
-    sig = inspect.signature(fn)
-
-    @functools.wraps(fn)
-    def run(*args, **kw):
-        if "device" not in sig.bind_partial(*args, **kw).arguments:
-            kw["device"] = "cpu"
-        return fn(*args, **kw)
-    return run
-
-
-class _PortModule(types.ModuleType):
-    """A port module seen through `_on_cpu`, installed under the
-    reference's module name while a test runs on the port."""
-
-    def __init__(self, mod):
-        super().__init__(mod.__name__)
-        self.__dict__["_mod"] = mod
-
-    def __getattr__(self, name):
-        return _on_cpu(getattr(self.__dict__["_mod"], name))
-
-
-def _is_reference_name(name: str) -> bool:
-    return name == "dgraph_tpu" or name.startswith("dgraph_tpu.")
-
-
-def _port_counterpart(obj):
-    if inspect.ismodule(obj):
-        if not _is_reference_name(obj.__name__):
-            return obj
-        mod = _port_module(obj.__name__)
-        return _PortModule(mod) if mod is not None else obj
-    mod_name = getattr(obj, "__module__", "") or ""
-    if not _is_reference_name(mod_name):
-        return obj
-    mod = _port_module(mod_name)
-    if mod is None or not hasattr(mod, obj.__qualname__):
-        return obj
-    return _on_cpu(getattr(mod, obj.__qualname__))
-
-
-def _bind_port(ref_mod, monkeypatch):
-    """Rebind the names a reference test module took from dgraph_tpu,
-    and alias the reference's modules in sys.modules to the port's
-    (imports inside test bodies), for one pass."""
-    for name, obj in list(vars(ref_mod).items()):
-        if inspect.ismodule(obj) or inspect.isclass(obj) or callable(obj):
-            got = _port_counterpart(obj)
-            if got is not obj:
-                monkeypatch.setattr(ref_mod, name, got)
-    for name in [k for k in sys.modules if _is_reference_name(k)]:
-        if name == "dgraph_tpu":
-            continue
-        mod = _port_module(name)
-        if mod is not None:
-            monkeypatch.setitem(sys.modules, name, _PortModule(mod))
 
 
 def _fixture(ref_mod, name, where, monkeypatch, cleanups, fixtures):
@@ -259,7 +169,7 @@ def run_in_both(ref_name, test_name, tmp_path, params=None,
                 _engines.append(self)
             mp.setattr(cls, "__init__", tracked)
             if side == "port":
-                _bind_port(ref_mod, mp)
+                bind_port(ref_mod, mp)
             before = metrics.counters_snapshot()
             seen[side] = _run_pass(ref_mod, test_name, where, params, mp,
                                    fixtures or {}, collect)
