@@ -68,7 +68,18 @@ Ported so far:
   lock, the network fault plane, the sampling profiler, alerts and the
   watchdog (`utils.reqctx`, `rwlock`, `netfault`, `pprof`, `alerts`,
   `watchdog`) and the command line (`cli`;
-  `python -m dgraph_tpu_torch alpha` serves GraphQL± from the card).
+  `python -m dgraph_tpu_torch alpha` serves GraphQL± from the card);
+- the cluster: Raft (`cluster.raft`, persisted through
+  `storage.kvfallback`), its TCP transport, the deterministic harness,
+  the leader-following client, Zero's state machine and the rebalance
+  planner (`cluster.transport`, `harness`, `client`, `zero`,
+  `rebalance`), replicated engine groups and cross-cluster standby
+  replication (`cluster.replica`, `replication`), federated queries
+  and the predicate-sharded topology with tablet moves and the
+  rebalancer (`cluster.federated`, `topology`), the networked alpha
+  and zero servers (`cluster.service`), a multi-process deployment
+  (`bench.spawn`) and `node`, `standby` and `rebalance` on the command
+  line; an alpha's engine runs on its `device`, a zero touches no card.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

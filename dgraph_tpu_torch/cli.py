@@ -9,9 +9,10 @@ environment variables, like the reference's DGRAPH_ALPHA_* viper prefixes
 Port of `dgraph_tpu/cli.py`: a copy, its imports pointed at this
 package. Every engine a command builds runs on `--device` (default:
 the card, raising without one; `--device cpu` for the CPU);
-`--no-device` keeps its meaning, `prefer_device=False`. `node`,
-`standby` and `rebalance` need the cluster, which is not ported yet
-(ROADMAP Queue 1 item 11): they raise NotImplementedError.
+`--no-device` keeps its meaning, `prefer_device=False`. A `node
+--kind alpha` builds its engine on `--device` with the reference's host
+tiers (`prefer_device=False`); a zero touches no card; `rebalance`'s
+federated coordinator runs on `--device`.
 """
 
 from __future__ import annotations
@@ -22,13 +23,6 @@ import os
 import sys
 
 from dgraph_tpu_torch import __version__
-
-_CLUSTER_PENDING = ("needs the cluster (cluster/), which is not ported "
-                    "yet (ROADMAP Queue 1 item 11)")
-
-
-def _needs_cluster(cmd: str):
-    raise NotImplementedError(f"dgraph-tpu {cmd}: {_CLUSTER_PENDING}")
 
 
 def _coerce(v, default):
@@ -182,11 +176,80 @@ def cmd_alpha(args) -> int:
     return 0
 
 
+def _parse_peers(spec: str) -> dict[int, tuple[str, int]]:
+    """'1=127.0.0.1:7101,2=127.0.0.1:7102' -> {1: (host, port), ...}"""
+    out: dict[int, tuple[str, int]] = {}
+    for part in spec.split(","):
+        nid, addr = part.split("=", 1)
+        host, port = addr.rsplit(":", 1)
+        out[int(nid)] = (host, int(port))
+    return out
+
+
 def cmd_node(args) -> int:
     """A Raft replica process: alpha (replicated GraphDB group member)
     or zero (replicated coordinator quorum member). Ref: dgraph alpha
     --raft / dgraph zero (worker/draft.go, dgraph/cmd/zero/zero.go)."""
-    _needs_cluster("node")
+    if getattr(args, "skew_s", 0.0):
+        # skew-clock nemesis: wall-clock reads in THIS process (TTL
+        # reconciliation, stage ages, logs) are offset; raft ticks use
+        # time.monotonic and are untouched
+        import time as _time
+        _real_time = _time.time
+        _off = args.skew_s
+        _time.time = lambda: _real_time() + _off
+
+    from dgraph_tpu_torch.cluster.service import AlphaServer, ZeroServer
+
+    peers = _parse_peers(args.raft_peers)
+    chost, cport = args.client_addr.rsplit(":", 1)
+    storage = None
+    if args.wal:
+        from dgraph_tpu_torch.cluster.raft import DiskStorage
+        storage = DiskStorage(args.wal, sync=args.sync)
+    kw = dict(storage=storage, tick_s=args.tick_ms / 1000.0,
+              election_ticks=args.election_ticks,
+              debug_port=args.debug_port, debug_host=args.debug_host)
+    if args.kind == "alpha":
+        zero_addrs = _parse_peers(args.zero) if args.zero else None
+        # the alpha's engine runs on --device (None: the card); the
+        # reference's host tiers (prefer_device=False) stay the default
+        db_kw = {"device": args.device}
+        if getattr(args, "result_cache", 0):
+            db_kw["result_cache_entries"] = args.result_cache
+        srv = AlphaServer(args.id, peers, (chost, int(cport)),
+                          group=args.group, replicas=args.replicas,
+                          zero_addrs=zero_addrs,
+                          max_pending=args.max_pending,
+                          learner=getattr(args, "learner", False),
+                          tenant_rate=getattr(args, "tenant_rate", 0.0),
+                          tenant_burst=getattr(args, "tenant_burst",
+                                               0.0),
+                          db_kw=db_kw,
+                          snapshot=getattr(args, "snapshot", ""), **kw)
+    else:
+        srv = ZeroServer(
+            args.id, peers, (chost, int(cport)),
+            move_throttle_mb_s=args.move_throttle_mb_s,
+            move_fence_lag=args.move_fence_lag,
+            move_fence_timeout_s=args.move_fence_timeout_s,
+            rebalance_interval_s=args.rebalance_interval,
+            rebalance_band=args.rebalance_band,
+            split_heat=args.split_heat,
+            rebalance_pin=args.rebalance_pin,
+            rebalance_cooldown_s=args.rebalance_cooldown_s,
+            standby_of=_parse_peers(args.standby_of)
+            if getattr(args, "standby_of", "") else None, **kw)
+    print(f"dgraph-tpu {args.kind} node {args.id}: raft "
+          f"{peers[args.id]}, client {srv.client_addr}"
+          + (f", debug http {args.debug_host}:{args.debug_port}"
+             if args.debug_port else ""), file=sys.stderr,
+          flush=True)
+    _start_watchdog(srv, getattr(srv, "node_name",
+                                 f"{args.kind}-{args.id}"),
+                    wal_path=args.wal)
+    srv.serve_forever()
+    return 0
 
 
 def _start_watchdog(srv, node_name: str, wal_path: str = ""):
@@ -704,7 +767,28 @@ def cmd_standby(args) -> int:
     primary — fencing the old primary, draining to its post-fence CDC
     heads, and reporting measured RPO/RTO (docs/deployment.md
     "Disaster recovery & upgrades")."""
-    _needs_cluster("standby")
+    from dgraph_tpu_torch.cluster.client import ClusterClient
+
+    zero = ClusterClient(_parse_peers(args.zero), timeout=60.0)
+    try:
+        if args.standby_op == "status":
+            out = zero._unwrap(zero.request({"op": "repl_status"}))
+            print(json.dumps(out, indent=2))
+            return 0
+        out = zero.request({"op": "standby_promote",
+                            "force": args.force})
+        if not out.get("ok"):
+            print(f"promote failed: {out.get('error')}",
+                  file=sys.stderr)
+            return 1
+        res = out["result"]
+        print(json.dumps(res, indent=2))
+        print(f"promoted: rpo_clean={res['rpo_clean']} "
+              f"drained={res['rpo_commits_drained']} commits, "
+              f"rto={res['rto_ms']}ms", file=sys.stderr)
+        return 0
+    finally:
+        zero.close()
 
 
 def cmd_rebalance(args) -> int:
@@ -712,7 +796,55 @@ def cmd_rebalance(args) -> int:
     reference runs it inside zero every --rebalance_interval 8m). Takes
     the compose topology map, moves one tablet heaviest->lightest per
     tick until converged; --once for a single pass."""
-    _needs_cluster("rebalance")
+    import time as _time
+
+    from dgraph_tpu_torch.cluster.client import ClusterClient
+    from dgraph_tpu_torch.cluster.topology import Rebalancer, RoutedCluster
+
+    with open(args.topology) as f:
+        topo = json.load(f)
+
+    def addrs(d: dict) -> dict:
+        out = {}
+        for i, a in d.items():
+            host, port = a.rsplit(":", 1)
+            out[int(i)] = (host, int(port))
+        return out
+
+    zero = ClusterClient(addrs(topo["zero"]), timeout=30.0)
+    groups = {int(g): ClusterClient(addrs(members), timeout=30.0)
+              for g, members in topo["groups"].items()}
+    rc = RoutedCluster(zero, groups, device=args.device)
+    reb = Rebalancer(rc, interval_s=args.interval,
+                     threshold=args.threshold)
+    try:
+        while True:
+            try:
+                move = reb.tick()
+            except Exception as e:  # noqa: BLE001 — daemon keeps going
+                if args.once:
+                    raise
+                # transient (zero election, concurrent operator move):
+                # log and retry next interval, like the in-zero loop
+                print(f"rebalance pass failed: {e}", file=sys.stderr)
+                move = None
+            if move:
+                pred, src, dst = move
+                print(f"moved tablet {pred!r}: group {src} -> {dst}")
+            elif args.once:
+                print("balanced")
+            if args.once:
+                if move is None:
+                    return 0
+                continue  # --once converges without pacing
+            # daemon mode paces ONE move per interval so the cluster
+            # absorbs each export/import before the next (the
+            # reference's rebalance_interval exists for exactly this)
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        rc.close()
 
 
 def _device_flag(parser):
@@ -1002,6 +1134,10 @@ def main(argv=None) -> int:
                         "dominating predicate splits into hash-range "
                         "sub-tablets instead of moving whole; "
                         "0 = splitting disabled")
+    n.add_argument("--device", default=None,
+                   help="alpha only: torch device of the engine "
+                        "(default: the card, cuda:0; `cpu` for the "
+                        "CPU); a zero touches no card")
     n.set_defaults(fn=cmd_node)
 
     ct = sub.add_parser("cert", help="TLS certificate management")
@@ -1068,6 +1204,10 @@ def main(argv=None) -> int:
                     help="min load spread before moving a tablet")
     rb.add_argument("--once", action="store_true",
                     help="run until balanced, then exit")
+    rb.add_argument("--device", default=None,
+                    help="torch device of the federated coordinator's "
+                         "engine (default: the card, cuda:0; `cpu` for "
+                         "the CPU)")
     rb.set_defaults(fn=cmd_rebalance)
 
     argv = _apply_config_layers(sub.choices,

@@ -784,3 +784,11 @@ def bitmap_and(mats: torch.Tensor) -> torch.Tensor:
 
 
 bitmap_and.launches = 0
+
+
+def launch_counts() -> dict:
+    """Each wrapper's launches in this process so far, by its name
+    (`score_int8` counts `score_int8_lists` too): what a cluster alpha
+    reports in its `stats` op."""
+    return {f.__name__: f.launches for f in (
+        bucket_or, bucket_or_level, score_dot, score_int8, bitmap_and)}

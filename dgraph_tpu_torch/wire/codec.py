@@ -10,9 +10,8 @@ Ref: protos/pb.proto Posting (:469), DirectedEdge, Proposal; codec
 discipline: raftwal/storage.go encodes entries through proto too.
 
 Port of `dgraph_tpu/wire/codec.py`: every tag encodes to the reference's
-bytes. The raft Entry and Msg tags still encode (by class name, as in the
-reference) but decoding them raises NotImplementedError until the
-cluster is ported (ROADMAP Queue 1 item 11).
+bytes and decodes into this package's classes (the raft Entry and Msg
+into `cluster/raft`).
 """
 
 from __future__ import annotations
@@ -287,13 +286,15 @@ def decode(r: _Reader) -> Any:
         src = _unzigzag(r.uvarint())
         dst = _unzigzag(r.uvarint())
         return EdgeOp(op, src, dst, decode(r), decode(r))
-    if tag in (T_ENTRY, T_MSG):
-        # the raft records decode into cluster/raft's Entry and Msg,
-        # which come with the cluster (ROADMAP Queue 1 item 11)
-        raise NotImplementedError(
-            f"wire: tag {tag:#x} (raft {'Entry' if tag == T_ENTRY else 'Msg'})"
-            " decodes into cluster/raft, which is not ported yet "
-            "(ROADMAP Queue 1 item 11, the cluster)")
+    if tag == T_ENTRY:
+        from dgraph_tpu_torch.cluster.raft import Entry
+        term = r.uvarint()
+        index = r.uvarint()
+        return Entry(term, index, decode(r))
+    if tag == T_MSG:
+        from dgraph_tpu_torch.cluster.raft import Msg
+        kw = {f: decode(r) for f in _MSG_FIELDS}
+        return Msg(**kw)
     raise WireError(f"wire: unknown tag {tag:#x}")
 
 

@@ -11,14 +11,22 @@ without `--device` those engines go to the card. Responses the CLI
 drew from a served Alpha (`increment`) must be equal, masked as
 `torch_twins.MASKED` names.
 
-The cluster's commands (`node`, `standby`, `rebalance`) raise
-NotImplementedError until ROADMAP Queue 1 item 11 ports `cluster/`.
+The cluster's commands run through both packages too: `node` as the
+processes a reference case spawns (`python -m dgraph_tpu_torch node
+--device cpu` in the port's pass), `rebalance --once` as
+test_multigroup's case drives it in process, and `standby status` and
+`promote` against a zero of each package, whose printed reports must be
+equal.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -31,7 +39,7 @@ from tests.torch_twins import reference_cases, run_twins
 REPO = Path(__file__).resolve().parent.parent
 CASES = reference_cases("test_cli")
 ENGINE_COMMANDS = ("alpha", "acl", "backup", "restore", "bulk", "live",
-                   "export", "debug")
+                   "export", "debug", "node", "rebalance")
 
 
 def _cpu_env(mp, ref_mod):
@@ -69,16 +77,48 @@ def test_cli_restore_to_ts_through_both(tmp_path):
 # -- the port's own rules ---------------------------------------------------
 
 
-@pytest.mark.parametrize("cmd,argv", [
-    ("node", ["node", "--id", "1", "--raft-peers", "1=127.0.0.1:1",
-              "--client-addr", "127.0.0.1:2"]),
-    ("standby", ["standby", "status", "--zero", "1=127.0.0.1:1"]),
-    ("rebalance", ["rebalance", "topology.json", "--once"]),
-])
-def test_cluster_commands_wait_for_item_11(cmd, argv):
-    with pytest.raises(NotImplementedError,
-                       match=f"{cmd}.*ROADMAP Queue 1 item 11"):
-        cli.main(argv)
+# the reference's cases that drive each cluster command
+CLUSTER_COMMANDS = {
+    "node": ("test_format_version", "test_hello_negotiation_on_the_wire"),
+    "rebalance": ("test_multigroup", "test_rebalance_cli_once"),
+}
+
+
+def _standby_reports(pkg: str) -> list:
+    """`standby status` and `standby promote` of `pkg`'s CLI against a
+    one-node zero of `pkg`: exit codes and what each printed."""
+    service = importlib.import_module(f"{pkg}.cluster.service")
+    spawn = importlib.import_module(f"{pkg}.bench.spawn")
+    main = importlib.import_module(f"{pkg}.cli").main
+    rp, cp = spawn.free_ports(2)
+    zero = service.ZeroServer(1, {1: ("127.0.0.1", rp)}, ("127.0.0.1", cp),
+                              tick_s=0.02, election_ticks=5)
+    out = []
+    try:
+        end = time.monotonic() + 30
+        while not zero.is_leader():
+            assert time.monotonic() < end, "no zero leader"
+            time.sleep(0.02)
+        for op in ("status", "promote"):
+            printed, said = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(printed), \
+                    contextlib.redirect_stderr(said):
+                rc = main(["standby", op, "--zero", f"1=127.0.0.1:{cp}"])
+            out.append((op, rc, printed.getvalue(), said.getvalue()))
+    finally:
+        zero.close()
+    return out
+
+
+@pytest.mark.parametrize("cmd", ["node", "standby", "rebalance"])
+def test_cluster_command_through_both(cmd, tmp_path):
+    if cmd == "standby":
+        ref = _standby_reports("dgraph_tpu")
+        assert _standby_reports("dgraph_tpu_torch") == ref
+        assert [rc for _, rc, _, _ in ref] == [0, 1]
+        return
+    ref_name, case = CLUSTER_COMMANDS[cmd]
+    run_twins(ref_name, [case], tmp_path, port_setup=_cpu_env)
 
 
 @pytest.mark.parametrize("argv", [

@@ -5,12 +5,11 @@ reference's, on the CPU.
 The reference's own tests of these modules run through both packages
 (`tests/torch_twins.run_twins`): once as they are, once with their
 `dgraph_tpu` names bound to the port's. Whatever either pass serves
-over HTTP must be equal, masked as `torch_twins.MASKED` names.
-
-Left out, with the cluster (ROADMAP Queue 1 item 11): the cases of
-test_reqctx and test_netfault that drive `cluster/` (federated tasks,
-the cluster client and transport, RaftServer), listed in
-`CLUSTER_CASES` below.
+over HTTP, and every answer a cluster client got, must be equal, masked
+as `torch_twins.MASKED` names. The cases of test_reqctx and
+test_netfault that drive `cluster/` (federated tasks, the cluster client
+and transport, RaftServer), in `CLUSTER_CASES`, run as one test item
+(`torch_twins.run_each`).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from dgraph_tpu.utils import reqlog as jreqlog
 from dgraph_tpu_torch.cluster.coordinator import TxnAborted as TTxnAborted
 from dgraph_tpu_torch.utils import reqctx as treqctx
 from dgraph_tpu_torch.utils import reqlog as treqlog
-from tests.torch_twins import reference_cases, run_twins
+from tests.torch_twins import reference_cases, run_each, run_twins
 
 CLUSTER_CASES = {
     "test_reqctx": (
@@ -57,6 +56,11 @@ def test_the_reference_files_hold_their_cases():
                          ids=[f"{f}::{c}" for f, c in CASES])
 def test_serving_utils_through_both(ref_name, case, tmp_path):
     run_twins(ref_name, [case], tmp_path)
+
+
+def test_cluster_cases_through_both(tmp_path):
+    run_each([(f, c) for f, cases in CLUSTER_CASES.items() for c in cases],
+             tmp_path)
 
 
 # -- reqlog.outcome_of -------------------------------------------------------

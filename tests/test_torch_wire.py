@@ -1,9 +1,7 @@
 """The port's wire codec (dgraph_tpu_torch.wire) against the reference's
 (dgraph_tpu.wire): the inputs of tests/test_wire.py give equal `dumps`
 bytes and round-trip through both codecs, each decoding the other's
-bytes. The raft Entry and Msg tags wait for the cluster (ROADMAP Queue 1
-item 11): the port encodes them as the reference does and refuses to
-decode them."""
+bytes, the raft Entry and Msg records included."""
 
 import datetime
 import pickle
@@ -13,10 +11,11 @@ import numpy as np
 import pytest
 
 from dgraph_tpu import wire as jw
-from dgraph_tpu.cluster.raft import Entry, Msg
+from dgraph_tpu.cluster import raft as jraft
 from dgraph_tpu.models import types as jtypes
 from dgraph_tpu.storage import tablet as jtab
 from dgraph_tpu_torch import wire as tw
+from dgraph_tpu_torch.cluster import raft as traft
 from dgraph_tpu_torch.models import types as ttypes
 from dgraph_tpu_torch.storage import tablet as ttab
 from dgraph_tpu_torch.storage.wal import _decode_record
@@ -87,14 +86,32 @@ def test_record_bytes_equal_and_cross_decode():
     assert jw.dumps(jw.loads(tw.dumps(trec))) == jw.dumps(jrec)
 
 
-def test_raft_tags_encode_alike_and_refuse_to_decode():
-    e = Entry(term=3, index=17, data=("commit", 5, [], {}))
-    m = Msg(type="append_req", frm=1, to=2, term=3, prev_index=16,
-            prev_term=3, entries=[e], commit=15)
-    for obj in (e, m):
-        assert tw.dumps(obj) == jw.dumps(obj)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tw.loads(jw.dumps(obj))
+def _raft_records(raft, types, tab):
+    _, rec = _records(types, tab)
+    e = raft.Entry(term=3, index=17, data=rec)
+    m = raft.Msg(type="append_req", frm=1, to=2, term=3, prev_index=16,
+                 prev_term=3, entries=[e, raft.Entry(3, 18, None)],
+                 commit=15)
+    v = raft.Msg(type="vote_resp", frm=2, to=1, term=4, granted=True)
+    s = raft.Msg(type="snap_req", frm=1, to=3, term=4, snap_index=9,
+                 snap_term=2, snap_data=b"\x00state")
+    return [e, m, v, s]
+
+
+@pytest.mark.parametrize("i", range(4), ids=["entry", "append_req",
+                                             "vote_resp", "snap_req"])
+def test_raft_records_bytes_equal_and_cross_decode(i):
+    """Entry and Msg encode to the same bytes in both packages, and each
+    decodes the other's into its own raft classes, whose bytes are the
+    record's again."""
+    j = _raft_records(jraft, jtypes, jtab)[i]
+    t = _raft_records(traft, ttypes, ttab)[i]
+    blob = jw.dumps(j)
+    assert tw.dumps(t) == blob
+    back = tw.loads(blob)
+    assert type(back) is type(t) and tw.dumps(back) == blob
+    there = jw.loads(tw.dumps(t))
+    assert type(there) is type(j) and jw.dumps(there) == blob
 
 
 def test_version_check():
