@@ -217,6 +217,8 @@ def cmd_node(args) -> int:
         db_kw = {"device": args.device}
         if getattr(args, "result_cache", 0):
             db_kw["result_cache_entries"] = args.result_cache
+        if getattr(args, "planner", "auto") != "auto":
+            db_kw["planner"] = args.planner
         srv = AlphaServer(args.id, peers, (chost, int(cport)),
                           group=args.group, replicas=args.replicas,
                           zero_addrs=zero_addrs,
@@ -1083,6 +1085,13 @@ def main(argv=None) -> int:
     n.add_argument("--tenant-burst", type=float, default=0.0,
                    help="alpha only: per-tenant QoS bucket depth "
                         "(defaults to --tenant-rate when 0)")
+    n.add_argument("--planner", choices=("auto", "static"),
+                   default="auto",
+                   help="alpha only: the engine's tier planner "
+                        "(GraphDB(planner=)); static keeps the flag "
+                        "ladder, so which tier a request takes, and "
+                        "the kernels it launches, follow from the "
+                        "request alone")
     n.add_argument("--result-cache", type=int, default=0,
                    help="alpha only: CDC-invalidated query result "
                         "cache entries; replica-consistent change-log "

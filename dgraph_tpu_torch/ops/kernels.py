@@ -31,11 +31,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from dgraph_tpu_torch.ops import _build
+
+# requests served on concurrent threads launch kernels at once, and
+# `+=` on an attribute reads and writes it apart: a count takes the lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 # degree-axis length one block ORs before the row is split across
 # blocks (and merged with atomicOr); long enough that a bucket of
@@ -173,7 +184,7 @@ def bucket_or(f: torch.Tensor, in_nb: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"bucket_or kernel launch failed: CUDA error "
                            f"{err} (M={m}, D={degree}, W={width})")
-    bucket_or.launches += 1
+    _count(bucket_or)
     return out
 
 
@@ -372,7 +383,7 @@ def bucket_or_level(f: torch.Tensor, mask: torch.Tensor,
             raise RuntimeError(f"bucket_or_level kernel launch failed: CUDA "
                                f"error {err} (M={m}, D={degree}, W={width}, "
                                f"mode={mode})")
-        bucket_or_level.launches += 1
+        _count(bucket_or_level)
 
     if degree <= LEVEL_CHUNK:
         launch(0)
@@ -557,7 +568,7 @@ def score_dot(corpus: torch.Tensor, queries: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"score_dot kernel launch failed: CUDA error "
                            f"{err} (n={n}, b={b}, d={d})")
-    score_dot.launches += 1
+    _count(score_dot)
     return out
 
 
@@ -643,7 +654,7 @@ def score_int8(codes: torch.Tensor, queries: torch.Tensor,
     table = np.array([(0, n, a, min(mt, b - a), a * n)
                       for a in range(0, b, mt)], np.int64)
     if _launch_lists(codes, queries, table, out.view(-1), None, None, None):
-        score_int8.launches += 1
+        _count(score_int8)
     return out
 
 
@@ -722,7 +733,7 @@ def score_int8_lists(codes: torch.Tensor, queries: torch.Tensor,
                                           qidx=qidx, scales=scales,
                                           cterm=cterm)
     if _launch_lists(codes, queries, table, out, qidx, scales, cterm):
-        score_int8.launches += 1
+        _count(score_int8)
     return out
 
 
@@ -779,7 +790,7 @@ def bitmap_and(mats: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"bitmap_and kernel launch failed: CUDA error "
                            f"{err} (k={k}, B={b}, W={w})")
-    bitmap_and.launches += 1
+    _count(bitmap_and)
     return out
 
 

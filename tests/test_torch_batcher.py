@@ -7,9 +7,9 @@ demultiplexed bodies, per-request deadlines, error scoping and the
 serving layer's wiring. The bodies each `MicroBatcher.query_json` and
 each served request returned must be equal between the passes, masked
 as `torch_twins.MASKED` names. The reference's cases carry the
-lockcheck and racecheck markers, which arm the reference's runtime
-witnesses (`utils/lockcheck`, `utils/racecheck`, Queue 1 item 12);
-the port has none yet, so its pass runs without them.
+lockcheck and racecheck markers: each pass runs them with its own
+package's runtime witnesses armed (`utils/lockcheck`,
+`utils/racecheck`), and a witnessed violation fails it.
 """
 
 from __future__ import annotations

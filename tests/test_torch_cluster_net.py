@@ -19,9 +19,10 @@ host), past 8 ticks, so a follower takes over and
 the interactive transaction open on the old leader is gone. The
 reference's `test_interactive_txn_over_cluster` fails alone for it,
 and now and then in file order (ROADMAP Queue 3). The
-reference's file carries the lockcheck and racecheck markers, which arm
-its runtime witnesses (`utils/lockcheck`, `utils/racecheck`, ROADMAP
-Queue 1 item 12); neither pass runs them here.
+reference's file carries the lockcheck and racecheck markers: each pass
+runs every case with its own package's runtime witnesses armed
+(`utils/lockcheck`, `utils/racecheck`), and a witnessed violation fails
+it (`torch_twins.witnessed`).
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ own directory; afterwards the two directories must hold the same
 files with the same bytes (gzip members compared by their contents,
 manifests apart from their wall-clock stamps, encrypted blobs by
 length), and the tablet store's loads and evictions and the result
-cache's hits, misses and invalidations must have moved alike.
+cache's hits, misses and invalidations must have moved alike. A test
+the reference marks `racecheck` (test_prefetch) runs with each pass's
+own runtime witness armed, and a witnessed race fails it
+(`torch_twins.witnessed`).
 
 The reference's two NativeKV tests (`test_checkpoint_compacts_store`,
 `test_lsm_compaction_crash_window_no_resurrection`) test its native LSM
@@ -55,7 +58,9 @@ from dgraph_tpu_torch.storage import snapshot as tsnap
 from dgraph_tpu_torch.storage import uri as turi
 from dgraph_tpu_torch.storage.wal import _PyWal
 from dgraph_tpu_torch.utils import metrics as tmetrics
-from tests.torch_twins import CpuGraphDB, bind_port
+from tests.torch_twins import (
+    CpuGraphDB, bind_port, witness_marks, witnessed,
+)
 
 # counters both passes of a reference test must move alike
 COUNTERS = ("tablet_store_loads", "tablet_store_evictions",
@@ -87,18 +92,22 @@ def _fixture(ref_mod, name, where, monkeypatch, cleanups, fixtures):
 
 
 def _run_pass(ref_mod, test_name, where, params, monkeypatch, fixtures,
-              collect):
+              collect, pkg):
+    """One pass of a reference test, with `pkg`'s own runtime witnesses
+    armed where the test is marked `lockcheck` or `racecheck`."""
     fn = getattr(ref_mod, test_name)
     cleanups: list = []
-    try:
-        args = {p: params[p] if p in params else
-                _fixture(ref_mod, p, where, monkeypatch, cleanups, fixtures)
-                for p in inspect.signature(fn).parameters}
-        fn(**args)
-        return collect(args) if collect is not None else None
-    finally:
-        for c in reversed(cleanups):
-            c()
+    with witnessed(pkg, witness_marks(fn, ref_mod)):
+        try:
+            args = {p: params[p] if p in params else
+                    _fixture(ref_mod, p, where, monkeypatch, cleanups,
+                             fixtures)
+                    for p in inspect.signature(fn).parameters}
+            fn(**args)
+            return collect(args) if collect is not None else None
+        finally:
+            for c in reversed(cleanups):
+                c()
 
 
 def _counters(metrics, before):
@@ -171,8 +180,9 @@ def run_in_both(ref_name, test_name, tmp_path, params=None,
             if side == "port":
                 bind_port(ref_mod, mp)
             before = metrics.counters_snapshot()
-            seen[side] = _run_pass(ref_mod, test_name, where, params, mp,
-                                   fixtures or {}, collect)
+            seen[side] = _run_pass(
+                ref_mod, test_name, where, params, mp, fixtures or {},
+                collect, "dgraph_tpu" if side == "ref" else "dgraph_tpu_torch")
             got[side] = _counters(metrics, before)
             built[side] = _engine_dumps(engines, snap, wire) if dumps \
                 else [None] * len(engines)

@@ -13,8 +13,9 @@ as `torch_twins.MASKED` and `CLUSTER_MASKED` name. The cases of
 test_multigroup and test_bulk_cluster on their module-scoped cluster run
 in one call, in file order, as they share that cluster in the
 reference's file; test_move_rebalance's three cases on its module
-cluster do not depend on each other, and each runs on its own. All of
-them are one test item (`torch_twins.run_each`).
+cluster do not depend on each other, and each runs on its own, with
+each pass's own racecheck witness armed, as the file's marker asks. All
+of them are one test item (`torch_twins.run_each`).
 """
 
 from __future__ import annotations

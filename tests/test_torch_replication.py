@@ -13,7 +13,13 @@ got must equal the reference's, masked as `torch_twins.MASKED` and
 `CLUSTER_MASKED` name. test_replication's three cases on its module-
 scoped primary and standby pair run in one call, in file order, as
 they share that pair in the reference's file. All of them are one test
-item (`torch_twins.run_each`).
+item (`torch_twins.run_each`). The nodes' ports come from below the
+kernel's ephemeral range (`torch_twins.steady_free_ports`): test_cdc's
+process-generations case SIGKILLs its cluster and restarts every node on
+its old ports, and a node whose port an outbound connection of a busy
+host took in between exits at bind, leaving its group without a leader.
+test_cdc's cases carry the racecheck marker: each pass arms its own
+package's witness around them.
 """
 
 from __future__ import annotations

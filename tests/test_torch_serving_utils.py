@@ -9,7 +9,8 @@ over HTTP, and every answer a cluster client got, must be equal, masked
 as `torch_twins.MASKED` names. The cases of test_reqctx and
 test_netfault that drive `cluster/` (federated tasks, the cluster client
 and transport, RaftServer), in `CLUSTER_CASES`, run as one test item
-(`torch_twins.run_each`).
+(`torch_twins.run_each`). test_rwlock's cases carry the lockcheck
+marker: each pass runs them under its own package's lock-order witness.
 """
 
 from __future__ import annotations

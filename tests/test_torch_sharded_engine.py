@@ -104,8 +104,12 @@ def test_sharded_query_matches_reference_and_host(engines, name):
     assert counters["port"] == counters["ref"]
     for d in DIRS[name]:
         assert counters["port"][d] > 0, d
+    # each direction's sharded tile exists once a query walked it: the
+    # forward one is built by a forward expand, the reverse one by a
+    # reverse expand (a case alone builds only its own)
     tab = engines["port"].tablets["follows"]
-    assert tab._device_sadj is not None
+    if "fwd" in DIRS[name]:
+        assert tab._device_sadj is not None
     if "rev" in DIRS[name]:
         assert tab._device_sadj_r is not None
 

@@ -38,16 +38,31 @@ the reason at the call).
 Both passes start from a clean observability plane (metrics, spans,
 request log, cost store, watchdog, failpoints, fault rules) in their
 own package, and a pass that leaves a failpoint or a fault rule armed
-fails.
+fails. Both passes take the ports of the nodes they spawn from below
+the kernel's ephemeral range (`steady_free_ports`, in place of
+`bench.spawn.free_ports` and a test file's own `_free_ports`).
+
+A case the reference marks `lockcheck` or `racecheck` (on its function,
+its class or its module's `pytestmark`) runs with its own pass's
+runtime witness armed (`utils/lockcheck`, `utils/racecheck` of the
+reference in the reference's pass, of the port in the port's; never
+both at once, since each patches `threading.Lock` for the process),
+with the marker's `strict` and `sample` keywords, and any violation
+recorded fails the pass, as tests/conftest.py fails the reference's own
+run. As under pytest, the case's module-scoped fixtures are built
+before the witness is armed, its function-scoped ones after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import inspect
 import json
+import random
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -57,6 +72,7 @@ from pathlib import Path
 
 import pytest
 
+from dgraph_tpu.bench import spawn as jspawn
 from dgraph_tpu.engine import batcher as jbatcher
 from dgraph_tpu.server import grpc_api as jgrpc
 from dgraph_tpu.server import http as jhttp
@@ -83,6 +99,9 @@ MASKED = {
     # the sampling profiler's catch: which stacks, how many samples
     # and threads it saw in its window
     "collapsed", "profiles", "shared", "samples", "threads",
+    # a backup manifest entry's wall-clock second: the two passes may
+    # take their backups in different seconds
+    "unix_ts",
 }
 # masked in what a cluster client got back, with why: Zero leases every
 # timestamp, and background work (rebalance ticks, moves, writers the
@@ -104,7 +123,9 @@ PRELOAD = ("cli", "server", "server.acl", "server.qos", "server.tls",
            "cluster.replica", "cluster.replication", "cluster.federated",
            "cluster.topology", "cluster.service", "bench.spawn",
            "cdc.changelog", "storage.versions", "storage.wal",
-           "storage.tablet", "gql.nquad", "engine.result_cache")
+           "storage.tablet", "gql.nquad", "engine.result_cache",
+           "bench.openloop", "bench.workload", "utils.lockcheck",
+           "utils.racecheck")
 for _name in PRELOAD:
     importlib.import_module(f"dgraph_tpu.{_name}")
     importlib.import_module(f"dgraph_tpu_torch.{_name}")
@@ -439,6 +460,86 @@ def _pb_bytes(resp):
     return resp.SerializeToString(deterministic=True), payload, uids
 
 
+# -- the runtime witnesses -----------------------------------------------------
+
+WITNESSES = ("lockcheck", "racecheck")
+
+
+def witness_marks(*holders) -> dict:
+    """{marker name: kwargs} of the lockcheck and racecheck marks on
+    `holders` (a case's function, its class, its module), the closest
+    holder's mark winning as in pytest's `get_closest_marker`."""
+    out: dict = {}
+    for holder in holders:
+        marks = getattr(holder, "pytestmark", ())
+        if not isinstance(marks, (list, tuple)):
+            marks = [marks]
+        for m in marks:
+            m = getattr(m, "mark", m)
+            if m.name in WITNESSES:
+                out.setdefault(m.name, dict(m.kwargs))
+    return out
+
+
+@contextlib.contextmanager
+def witnessed(pkg: str, marks: dict):
+    """Arm `pkg`'s own witnesses as `marks` ask (lockcheck first, then
+    racecheck, as tests/conftest.py's fixtures do), and fail on any
+    violation either recorded."""
+    armed = []
+    if "lockcheck" in marks:
+        lc = importlib.import_module(f"{pkg}.utils.lockcheck")
+        lc.enable(strict=bool(marks["lockcheck"].get("strict", False)))
+        armed.append(lc)
+    if "racecheck" in marks:
+        rc = importlib.import_module(f"{pkg}.utils.racecheck")
+        rc.enable(strict=bool(marks["racecheck"].get("strict", False)),
+                  sample=int(marks["racecheck"].get("sample", 1)))
+        armed.append(rc)
+    found = []
+    try:
+        yield
+    finally:
+        for mod in reversed(armed):
+            found += [(mod.__name__, v) for v in mod.disable()]
+    if found:
+        pytest.fail(f"{pkg}: violation(s) witnessed:\n" + "\n".join(
+            f"[{name}] {v}" for name, v in found))
+
+
+# -- ports of spawned nodes -----------------------------------------------------
+
+# below Linux's default ephemeral range (32768-60999), from which the
+# kernel picks the local port of every outbound connection
+STEADY_PORTS = (20000, 32768)
+_port_rng = random.Random()
+
+
+def steady_free_ports(n: int) -> list[int]:
+    """`bench.spawn.free_ports` (and the cluster tests' own
+    `_free_ports`) drawing from STEADY_PORTS. Theirs bind port 0 and
+    close it, so the port lies in the ephemeral range: a node started or
+    restarted onto it later (`ProcessCluster.restart` keeps a node's
+    ports) finds it taken whenever an outbound connection of another
+    process picked it as its local port in between, and exits at bind
+    (`Address already in use`), which a busy host running other
+    clusters' clients makes likely."""
+    out: list[int] = []
+    while len(out) < n:
+        port = _port_rng.randrange(*STEADY_PORTS)
+        if port in out:
+            continue
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        out.append(port)
+    return out
+
+
 # -- one pass -----------------------------------------------------------------
 
 
@@ -497,11 +598,17 @@ class _TmpFactory:
 
 
 class _Pass:
-    def __init__(self, ref_mod, where, mp, builtins):
+    def __init__(self, ref_mod, where, mp, builtins, pkg):
         self.ref_mod, self.where, self.mp = ref_mod, where, mp
         self.builtins = builtins
+        self.pkg = pkg
         self.cache: dict = {}
         self.cleanups: list = []
+
+    def shared(self, name) -> bool:
+        marker = getattr(getattr(self.ref_mod, name, None),
+                         "_fixture_function_marker", None)
+        return marker is not None and marker.scope != "function"
 
     def fixture(self, name, scoped):
         if name == "monkeypatch":
@@ -515,9 +622,7 @@ class _Pass:
         if name in self.cache:
             return self.cache[name]
         fn = getattr(self.ref_mod, name)._get_wrapped_function()
-        marker = getattr(getattr(self.ref_mod, name, None),
-                         "_fixture_function_marker", None)
-        shared = marker is not None and marker.scope != "function"
+        shared = self.shared(name)
         args = {p: self.fixture(p, scoped)
                 for p in inspect.signature(fn).parameters}
         got = fn(**args)
@@ -533,22 +638,27 @@ class _Pass:
     def run(self, case):
         cls_name, _, fn_name = case.rpartition("::")
         fn_name, _, param_id = fn_name.partition("[")
-        if cls_name:
-            obj = getattr(self.ref_mod, cls_name)()
-            fn = getattr(obj, fn_name)
-        else:
-            fn = getattr(self.ref_mod, fn_name)
+        cls = getattr(self.ref_mod, cls_name) if cls_name else None
+        fn = getattr(cls(), fn_name) if cls else \
+            getattr(self.ref_mod, fn_name)
         params = _params(fn)[param_id.rstrip("]")] if param_id else {}
+        names = [p for p in inspect.signature(fn).parameters
+                 if p not in params]
+        for name in _autouse(self.ref_mod) + names:
+            if self.shared(name):
+                self.fixture(name, None)
         scoped: list = []
-        try:
-            for name in _autouse(self.ref_mod):
-                self.fixture(name, scoped)
-            args = {p: params[p] if p in params else self.fixture(p, scoped)
-                    for p in inspect.signature(fn).parameters}
-            fn(**args)
-        finally:
-            for c in reversed(scoped):
-                c()
+        with witnessed(self.pkg, witness_marks(fn, cls, self.ref_mod)):
+            try:
+                for name in _autouse(self.ref_mod):
+                    self.fixture(name, scoped)
+                args = {p: params[p] if p in params
+                        else self.fixture(p, scoped)
+                        for p in inspect.signature(fn).parameters}
+                fn(**args)
+            finally:
+                for c in reversed(scoped):
+                    c()
 
     def close(self):
         for c in reversed(self.cleanups):
@@ -564,6 +674,10 @@ def _run_side(side, ref_mod, cases, where, builtins, port_setup, helpers,
     mp = pytest.MonkeyPatch()
     _reset_plane(utils)
     try:
+        for spawn in (jspawn, tspawn):
+            mp.setattr(spawn, "free_ports", steady_free_ports)
+        if hasattr(ref_mod, "_free_ports"):     # the cluster tests' own
+            mp.setattr(ref_mod, "_free_ports", steady_free_ports)
         _install_recorders(mp, http, batcher, grpc_api, log, where)
         if port_setup is not None:
             port_setup(mp, ref_mod)
@@ -574,7 +688,8 @@ def _run_side(side, ref_mod, cases, where, builtins, port_setup, helpers,
             mp.setattr(subprocess, "Popen", PortPopen)
         if setup is not None:
             setup(mp, ref_mod)
-        run = _Pass(ref_mod, where, mp, builtins)
+        run = _Pass(ref_mod, where, mp, builtins,
+                    "dgraph_tpu" if side == "ref" else "dgraph_tpu_torch")
         try:
             for case in cases:
                 run.run(case)
