@@ -10,8 +10,13 @@ Phases, each of which fails the run:
 1. card: name and power limit (nvidia-smi);
 2. build: one nvcc per kernel source, all started together, timed;
 3. kernels against their plain PyTorch versions on the card, bit-exact:
-   bucket_or over W in {1, 5, 128, 768}, degrees {1, 2, 3, 4, 6}, a hub
-   row of degree > 2^20 and padding indices at the dummy row N; the fused
+   bucket_or over W in {1, 2, 3, 5, 128, 768, 1,100} (4-, 8- and 16-byte
+   vectors, a partial last tile), degrees 1-6 and 16-17 (whole-row units
+   and chunk units), a degree-1 bucket of 2^17 rows, 255-257 around a
+   chunk, split rows of 3,000, a hub row of degree > 2^20, padding
+   indices at the dummy row N and all-padding rows, each into a new
+   tensor and into a slice of a larger one whose neighbours must stay
+   (its rows off 8 or 16 bytes at odd W); the fused
    bucket_or_level (frontier, visited, masks and sum) over W in {1, 5,
    37, 128, 768, 1,100}, frontier densities 0, one bit a row and 1/2
    (and 1/2 with mask bits cleared), the same degrees plus a warp's
@@ -38,7 +43,14 @@ Phases, each of which fails the run:
    epilogue it replaced, composed here only, its answer asserted
    equal), the plain version's time and the bound (bytes over 3.35
    TB/s, counting the non-zero segments the level needs); bucket_or
-   alone beside its plain version and its whole-row bound;
+   alone at W 768 beside its plain version, its whole-row bound, the
+   bound a call summed over the level's calls, the rate at which it
+   moves the rows it gathers (non-dummy indices x W x 4 bytes over its
+   time) and the first design's times; then bucket_or at the reach
+   path's own shape
+   (48 queries, W 2) on that path's frontiers, each level's device time
+   from a flushed L2 beside the host's time to queue its calls, the
+   plain version and the whole-row bound;
 7. where a batch's device time goes: torch.profiler over PIPE batches,
    self device time by kernel name and the device's idle share.
 
@@ -127,7 +139,7 @@ Each op of phases 19-21 is timed by CUDA events beside its bytes bound.
 The engine's write-path plane (`engine/db.GraphDB` over `storage/`,
 `cdc/` and `wire/`), on the golden movie graph (tests/golden/dataset.py,
 the shape of the reference's systest/21million film graph) at scale 10,
-about 267k RDF, plus 131,072 x 128 float32 embeddings (`gen_corpus`,
+about 267k RDF, plus 65,536 x 128 float32 embeddings (`gen_corpus`,
 seed 0):
 
 22. load: `GraphDB(device="cuda:0", plan_cache_size=0, wal_path=...)`
@@ -404,7 +416,15 @@ RUNS = 4                           # timed groups of PIPE batches
 # bucket_or_level's checks: partial segments (5, 37), and 1,100 words,
 # whose segments widen to 64 words
 LEVEL_WIDTHS = (1, 5, 37, 128, 768, 1100)
+# bucket_or's checks: 4-, 8- and 16-byte vectors, rows narrower than a
+# warp (the reach path's W 2 at 48 queries), and 1,100 words, whose last
+# tile of 32 vectors is partial
+OR_WIDTHS = (1, 2, 3, 5, 128, 768, 1100)
 REACH_QUERIES = 48
+# bucket_or over phase 6's levels at W 768 with its first design (a block
+# a row, 32 lanes along W), as this script measured it on an NVIDIA H100
+# 80GB HBM3 at 700.00 W; printed beside the current times
+OR_MS_FIRST = (16.640, 5.310, 5.314)
 KERNEL_REPS = 10
 PLAIN_REPS = 2
 # the vector plane's regime (bench_vectors.py's on an accelerator)
@@ -448,13 +468,21 @@ def log(msg: str) -> None:
 
 
 def check_kernel_shapes(kernels, dev, card: str) -> int:
-    """Phase 3: bucket_or against bucket_or_reference on the card."""
+    """Phase 3: bucket_or against bucket_or_reference on the card, bit for
+    bit, each shape also written into a slice of a larger tensor whose
+    other rows must stay."""
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 40_000
-    cases = [(20_000, d) for d in (1, 2, 3, 4, 6)]
-    cases += [(3, 3_000), (1, (1 << 20) + 24)]      # split rows, a hub
+    span = kernels.OR_SPAN
+    # whole-row units on both sides of OR_ROW_MAX_D, a degree-1 bucket of
+    # 2^17 rows, chunk units at and around OR_SPAN, split rows, a hub
+    cases = [(20_000, d) for d in (1, 2, 3, 4, 6, kernels.OR_ROW_MAX_D,
+                                   kernels.OR_ROW_MAX_D + 1)]
+    cases += [(1 << 17, 1), (40, span - 1), (9, span), (9, span + 1),
+              (3, 3_000), (1, (1 << 20) + 24)]
     worst = 0
-    for width in (1, 5, 128, 768):
+    plans = set()
+    for width in OR_WIDTHS:
         f = torch.randint(-2**31, 2**31, (n + 1, width), dtype=torch.int32,
                           device=dev, generator=gen)
         f[n] = 0                                     # dummy row
@@ -464,13 +492,18 @@ def check_kernel_shapes(kernels, dev, card: str) -> int:
             nb.view(-1)[::5] = n                     # padding entries
             if m > 7:
                 nb[1::7] = n                         # all-padding rows
-            got = kernels.bucket_or(f, nb)
             want = kernels.bucket_or_reference(f, nb)
-            # the out= path: a slice inside a larger tensor, neighbours kept
+            got = kernels.bucket_or(f, nb)
+            # the out= path: a slice inside a larger tensor, neighbours
+            # kept; at an odd W its rows are off 8 and 16 bytes
             big = torch.full((m + 2, width), 7, dtype=torch.int32,
                              device=dev)
             kernels.bucket_or(f, nb, out=big[1:m + 1])
             torch.cuda.synchronize()
+            for out in (got, big[1:m + 1]):
+                plans.add(kernels.bucket_or_plan(
+                    m, d, width, math.gcd(f.data_ptr(), out.data_ptr(),
+                                          16))[:5])
             err = int((got.long() - want.long()).abs().max())
             worst = max(worst, err)
             if not torch.equal(got, want) or \
@@ -478,9 +511,14 @@ def check_kernel_shapes(kernels, dev, card: str) -> int:
                     not bool((big[0] == 7).all() & (big[m + 1] == 7).all()):
                 raise AssertionError(
                     f"bucket_or != plain version at W={width} M={m} D={d}")
+            del want
         del f
-    log(f"kernel check: bucket_or bit-exact to its plain version on "
-        f"W {{1,5,128,768}} x {len(cases)} shapes (hub D=2^20+24) | {card}")
+    log(f"kernel check: bucket_or bit-exact to its plain version on W "
+        f"{list(OR_WIDTHS)} x {len(cases)} shapes (D 1-17, 255-257, "
+        f"3,000, the hub 2^20+24; a degree-1 bucket of 2^17 rows; "
+        f"all-padding rows), {len(plans)} distinct plans (vec, lanes, "
+        f"tiles, rows a unit, chunk), each into a new tensor and into a "
+        f"slice of a larger one with its neighbours kept | {card}")
     return worst
 
 
@@ -620,6 +658,18 @@ def level_bound_ms(f, recs) -> float:
     rows = sum(nb.shape[0] for nb, _ in recs)
     nbytes = distinct * width * 4 + idx.numel() * 4 + rows * width * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def calls_bound_ms(f, recs) -> float:
+    """bucket_or's least time a call, summed over a level's calls: each
+    call's distinct frontier rows, index table and output rows over the
+    memory rate (one launch a bucket reuses no row across buckets)."""
+    return sum(level_bound_ms(f, [rec]) for rec in recs)
+
+
+def gathered_rows(f, recs) -> int:
+    """A level's in-neighbour indices that are not the dummy row."""
+    return sum(int((nb != f.shape[0] - 1).sum()) for nb, _ in recs)
 
 
 def profile_window(run, batches: int, unit: str, card: str) -> None:
@@ -826,6 +876,60 @@ def unfused_level(kernels, lv, buckets, row_slots, vis):
     frontier = reach.bitwise_and_(~vis)
     vis |= frontier
     return frontier, vis, kernels.popcount_sum(frontier)
+
+
+def reach_shape_levels(kernels, bg, bfs, badj, reach_seeds, dev,
+                       card: str) -> None:
+    """Phase 6, last: bucket_or at the reach path's own shape, 48 queries
+    (W = 2) over the full buckets at each level, on that path's
+    frontiers: device time from a flushed L2 (fills queued ahead outlast
+    the host's queueing of the 42 calls, which is timed apart), against
+    the plain version and the whole-row bound."""
+    packed = bg.words_to_device(bg.uids_to_bits_batched(badj, reach_seeds),
+                                dev)
+    fronts = bg.make_bfs_bits_batched(badj, bfs.DEPTH)(packed)
+    recs = [(b.in_nb, b.offset) for b in badj.buckets]
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    total = bound_total = 0.0
+    for i, f in enumerate((packed,) + tuple(fronts[:-1])):
+        outs = {}
+        ms = {}
+        for name, fn in (("kernel", kernels.bucket_or),
+                         ("plain", kernels.bucket_or_reference)):
+            out = outs[name] = torch.empty((badj.n_covered, f.shape[1]),
+                                           dtype=torch.int32, device=dev)
+
+            def one_pass(fn=fn, out=out):
+                for nb, off in recs:
+                    fn(f, nb, out=out[off:off + nb.shape[0]])
+
+            ms[name] = timed_passes(one_pass, lambda: None,
+                                    KERNEL_REPS if name == "kernel"
+                                    else PLAIN_REPS, flush)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for nb, off in recs:
+            kernels.bucket_or(f, nb, out=outs["kernel"][off:off +
+                                                        nb.shape[0]])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if not torch.equal(outs["kernel"], outs["plain"]):
+            raise AssertionError(f"reach level {i + 1}: bucket_or != plain "
+                                 f"version at W {f.shape[1]}")
+        bound = level_bound_ms(f, recs)
+        gathered = gathered_rows(f, recs)
+        total += ms["kernel"]
+        bound_total += bound
+        log(f"reach level {i + 1}: bucket_or at W {f.shape[1]} "
+            f"({len(reach_seeds)} queries), {len(recs)} calls over "
+            f"{f.shape[0]} rows: {ms['kernel']:.4f} ms on the card from a "
+            f"flushed L2 (the host queues the calls in {host_ms:.4f} ms), "
+            f"plain {ms['plain']:.4f} ms, whole-row bound {bound:.4f} ms "
+            f"(bytes), {gathered} gathered rows at "
+            f"{gathered * f.shape[1] * 4 / ms['kernel'] / 1e9:.4f} TB/s | "
+            f"{card}")
+    log(f"reach levels 1-{bfs.DEPTH} at W {packed.shape[1]}: bucket_or "
+        f"{total:.4f} ms, whole-row bound {bound_total:.4f} ms | {card}")
 
 
 def bfs_plane(dev, card: str) -> list[dict]:
@@ -1035,6 +1139,8 @@ def bfs_plane(dev, card: str) -> list[dict]:
             raise AssertionError(f"level {i + 1}: bucket_or != plain version")
         del b_out, bp_out
         b_bound = level_bound_ms(f, recs)
+        b_calls = calls_bound_ms(f, recs)
+        gathered = gathered_rows(f, recs)
         n_bound = fused_level_bound_ms(kernels, lv, om)
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", n_bound),
                        ("unfused_ms", unfused_ms), ("or_ms", b_ms),
@@ -1047,11 +1153,25 @@ def bfs_plane(dev, card: str) -> list[dict]:
             f"{p_ms:.4f} ms, bound {n_bound:.4f} ms (bytes; bucket_or's "
             f"whole-row bound {b_bound:.4f} ms, its plain version "
             f"{bp_ms:.4f} ms) | {card}")
+        plan = kernels.bucket_or_plan(1, 1, f.shape[1], 16)
+        log(f"level {i + 1}: bucket_or at W {f.shape[1]} {b_ms:.4f} ms "
+            f"(first design {OR_MS_FIRST[i]:.3f}), whole-row bound "
+            f"{b_bound:.4f} "
+            f"ms (half {b_bound / 2:.4f}), bound a call summed over the "
+            f"{len(recs)} calls {b_calls:.4f} ms; {gathered} gathered "
+            f"rows, {gathered * f.shape[1] * 4 / 1e9:.3f} GB at "
+            f"{gathered * f.shape[1] * 4 / b_ms / 1e9:.3f} TB/s; "
+            f"{plan.ntiles} tile(s) of {plan.lanes} vectors of "
+            f"{4 * plan.vec} bytes | {card}")
         del fr, vis, om
     log(f"levels 1-{len(levels)}: bucket_or_level {tot['ms']:.4f} ms, "
         f"unfused path {tot['unfused_ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms | {card}")
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; "
+        f"bucket_or {tot['or_ms']:.4f} ms (first design "
+        f"{sum(OR_MS_FIRST):.3f}), "
+        f"whole-row bound {tot['or_bound_ms']:.4f} ms | {card}")
     del levels, flush
+    reach_shape_levels(kernels, bg, bfs, badj, reach_seeds, dev, card)
     torch.cuda.empty_cache()
 
     # -- 7. device time by kernel ------------------------------------------
@@ -1549,15 +1669,18 @@ def mesh_graph_phases(dev, card: str, g: dict, adj, fronts) -> None:
         build_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated(dev)
+        req0 = requested_bytes(dev)
         placed = host.put(mesh)
         torch.cuda.synchronize()
         grew = torch.cuda.memory_allocated(dev) - mem0
+        asked = requested_bytes(dev) - req0
         nbytes, alloc = tile_alloc(placed)
-        if not nbytes <= grew <= alloc or placed.n_edges != len(dst) or \
+        if asked != nbytes or placed.n_edges != len(dst) or \
                 placed.n_dst != adj.n_dst:
             raise AssertionError(f"{name} adjacency: {placed.n_edges} "
                                  f"edges, {placed.n_dst} destinations, "
-                                 f"{nbytes} bytes, allocated {grew}")
+                                 f"{nbytes} bytes, requested {asked}, "
+                                 f"allocated {grew}")
         built[name] = (host, placed)
         per_shard = [sum(int((b.src[i] != SENTINEL).sum())
                          for b in host.buckets) for i in range(MESH_SHARDS)]
@@ -1565,8 +1688,8 @@ def mesh_graph_phases(dev, card: str, g: dict, adj, fronts) -> None:
             f" edges in {MESH_SHARDS} shards: built in {build_s:.2f} s on "
             f"the host, {len(host.buckets)} buckets, sources a shard "
             f"{per_shard}; {nbytes / 2**30:.3f} GiB of int64 tensors on the "
-            f"card, memory_allocated grew {grew} bytes (512-byte blocks "
-            f"{alloc}) | {card}")
+            f"card, the allocator asked for {asked} bytes, memory_allocated "
+            f"grew {grew} (512-byte blocks {alloc}) | {card}")
     host_s, sadj = built["sharded"]
     host_r, radj = built["ring"]
     out_size = pad_to(max(sadj.n_dst, 1))
@@ -2117,8 +2240,9 @@ def mesh_engine_phase(dev, card: str, db, golden, state: dict,
 
 GOLDEN_SCALE = 10                  # tests/golden/dataset.py: ~267k RDF
 WRITE_BATCH = 1000                 # N-Quads a transaction (dgraph live)
-WRITE_VECS = 1 << 17               # the engine's vec_index_min_rows (the
-                                   # planes' engines train at half of it)
+WRITE_VECS = 1 << 16               # half the engine's default
+                                   # vec_index_min_rows; the planes'
+                                   # engines train at half of this
 WRITE_DIM = 128                    # SIFT1M's width
 VEC_UID0 = 1 << 24                 # above every golden uid at scale 10
 WRITE_QUERIES = 256
@@ -2169,6 +2293,14 @@ def tile_tensors(obj) -> list:
         return [t for f in dataclasses.fields(obj)
                 for t in tile_tensors(getattr(obj, f.name))]
     return []
+
+
+def requested_bytes(dev) -> int:
+    """Bytes the live tensors on `dev` asked the caching allocator for:
+    memory_allocated before its rounding, and before it hands out a
+    cached block up to 1 MiB larger than a request whole, which makes
+    memory_allocated's growth depend on what earlier phases freed."""
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
 
 
 def tile_alloc(obj) -> tuple[int, int]:

@@ -1,149 +1,395 @@
 // Gather-OR of one BFS level bucket, for Hopper (sm_90a), in two kernels:
-// bucket_or_kernel (below) and the fused level step bucket_or_level_kernel
-// (further down), which the BFS digest runs.
+// bucket_or_kernel (below), which the per-level reach path runs, and the
+// fused level step bucket_or_level_kernel (further down), which the BFS
+// digest runs.
 //
 // bucket_or_kernel replaces the TPU kernel bucket_or_pallas
 // (dgraph_tpu/ops/pallas_kernels.py:38). For a frontier bitmap
-// f uint32[N+1, W] (bit b of word w of row s: query 32*w+b has slot s in
+// f uint32[rows, W] (bit b of word w of row s: query 32*w+b has slot s in
 // its frontier) and one in-degree bucket in_nb int32[M, D] of in-neighbour
-// slots, it computes
+// rows, it computes
 //
 //     out[m] = OR_{d < D} f[in_nb[m, d]]                 out: uint32[M, W]
 //
-// Row N of f is the always-empty dummy slot that padding indices point
-// at. The kernel reads it like any other row, so it needs no
-// precondition on the indices beyond 0 <= in_nb < rows(f).
+// Padding indices point at an always-empty dummy row, which the kernel
+// reads like any other, so it needs no precondition on the indices beyond
+// 0 <= in_nb < rows.
 //
-// Bound: bytes. Each gathered row is W words read for W ORs, far below
-// the card's operations-per-byte line, so the least time is the bytes of
-// the distinct frontier rows referenced, the index table and the output
-// over the memory rate. The design serves that as simply as it can:
-//   * threads run along W, so a warp reads consecutive words of one
-//     gathered row, 16 bytes a thread (uint4) when W % 4 == 0;
-//   * each thread keeps four partial ORs in registers, so four row loads
-//     are in flight per thread, and writes its words once;
-//   * a block covers a few output rows (up to 256 threads along W and
-//     rows), and a row whose degree is longer than `chunk` (a zipf hub
-//     with up to millions of in-neighbours) is split across blocks along
-//     its degree axis: each block ORs its chunk in registers, then
-//     atomicOr's it into the output row, which the caller has zeroed.
-// The TPU kernel's index chunking (SMEM_IDX_CAPACITY) and its 128-lane
-// rule on W have no counterpart here: a block loads its own indices.
+// Bound: bytes. A gathered row is W words read for W ORs, far below the
+// card's operations-per-byte line, so the least time is the distinct rows
+// the call references, its index table and its output over the memory
+// rate: the whole-row bound. On the 21M-edge zipf graph a bucket's
+// gathers are 93% distinct rows (sources are uniform, and a row's
+// in-neighbours are distinct), so one call's bound is nearly its
+// gathered bytes: summed over a level's calls at W = 768, 14.03 ms at
+// level 1 and 4.11 deeper, against 2.35 and 0.99 for the level's own
+// bound, which counts a row once over all of its ~40 buckets, a reuse
+// that one launch a bucket cannot reach. The first design (a block a row,
+// 32 lanes along W, an atomic OR into a zeroed row for a split one) moved
+// the gathered bytes at 2.9 TB/s at W = 768 and left 30 of 32 lanes idle
+// at W = 2 (1.21 ms a level of the reach path, a 0.03 ms bound). The
+// design:
+//   * the bucket is cut into units, walked by a persistent grid (as many
+//     blocks as the card holds at once, their warps striding over the
+//     units), so no launch shape limits a hub row's split;
+//   * a unit stages its in-neighbour indices, one contiguous run of at
+//     most kSpan, in shared memory with one coalesced load a lane, marked
+//     evict-first (__ldcs): no lane reloads them from memory;
+//   * a group of L lanes (a power of two up to 32) covers a tile of L
+//     vectors of a row, 16 bytes a lane (uint4) where W % 4 == 0 and f
+//     and out are 16-byte aligned, else 8 (uint2) or 4. A warp holds
+//     32 / L groups, so a narrow row (W = 2 at 48 queries: one uint2)
+//     puts 32 groups in a warp and no lane idles. A wider row is several
+//     tiles, each its own unit, tile-minor, so a row's tiles are gathered
+//     side by side by neighbouring warps;
+//   * degree <= kRowMaxD (row units): a unit is up to 32 whole rows, each
+//     group taking rows in turn, walking its (row, in-neighbour) pairs
+//     kSlots loads at a time, so a degree-1 row copy keeps kSlots rows in
+//     flight; a small bucket takes fewer rows a unit, so it still has
+//     units for the whole card;
+//   * larger degree (chunk units): a unit is up to kSpan in-neighbours of
+//     one row, group g taking in-neighbours g, g + 32/L, ..., kSlots
+//     loads in flight a lane; the groups then meet in an OR across lanes
+//     (shuffles);
+//   * a row past kSpan in-neighbours (a zipf hub, up to 2M) is cut into
+//     chunks, each a unit: a chunk ORs its non-zero words into the row's
+//     scratch with reductions whose old value is unused (no warp waits on
+//     them), then takes a ticket of the row's tile; the tile's last chunk
+//     copies the scratch into out and zeroes the scratch and the ticket.
+//     So out is written once, with no atomics on it, a split bucket is
+//     one launch, and the scratch, zeroed once a stream, needs no fill
+//     before a launch;
+//   * out is written with streaming stores (__stcs).
+// L2 slabs (the word axis cut so that a slab of every source row stays in
+// L2 while a bucket gathers it) were measured and dropped: they can buy
+// only the 7% of reuse a bucket has, and at the core levels 32- and
+// 64-byte slabs took 12.9 and 8.8 ms against 6.1 for whole rows (NVIDIA
+// H100 80GB HBM3, 700.00 W). The plan (vector width, lanes, tiles, units)
+// is made on the host (ops/kernels.py, bucket_or_plan), which the CPU
+// tests hold to cover every (row, in-neighbour, word) once; the launcher
+// checks it. The TPU kernel's index chunking (SMEM_IDX_CAPACITY) and its
+// 128-lane rule on W have no counterpart here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr unsigned kOrFull = 0xffffffffu;
+constexpr int kOrWarps = 8;       // warps a block
+constexpr int kSpan = 256;        // indices a unit stages
+constexpr int kRowMaxD = 16;      // degrees taken as whole-row units
+constexpr int kSlots = 12;        // vector loads a lane keeps in flight
+
 __device__ __forceinline__ unsigned or_words(unsigned a, unsigned b) {
   return a | b;
 }
-
+__device__ __forceinline__ uint2 or_words(uint2 a, uint2 b) {
+  return make_uint2(a.x | b.x, a.y | b.y);
+}
 __device__ __forceinline__ uint4 or_words(uint4 a, uint4 b) {
   return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
 }
 
 template <typename V>
 __device__ __forceinline__ V zero_words();
-
 template <>
-__device__ __forceinline__ unsigned zero_words<unsigned>() {
-  return 0u;
+__device__ __forceinline__ unsigned zero_words<unsigned>() { return 0u; }
+template <>
+__device__ __forceinline__ uint2 zero_words<uint2>() {
+  return make_uint2(0u, 0u);
 }
-
 template <>
 __device__ __forceinline__ uint4 zero_words<uint4>() {
   return make_uint4(0u, 0u, 0u, 0u);
 }
 
-// zero words are skipped: the output row was zeroed before the launch
-__device__ __forceinline__ void atomic_or_words(unsigned* p, unsigned v) {
+__device__ __forceinline__ unsigned shfl_xor_words(unsigned v, int o) {
+  return __shfl_xor_sync(kOrFull, v, o);
+}
+__device__ __forceinline__ uint2 shfl_xor_words(uint2 v, int o) {
+  return make_uint2(__shfl_xor_sync(kOrFull, v.x, o),
+                    __shfl_xor_sync(kOrFull, v.y, o));
+}
+__device__ __forceinline__ uint4 shfl_xor_words(uint4 v, int o) {
+  return make_uint4(__shfl_xor_sync(kOrFull, v.x, o),
+                    __shfl_xor_sync(kOrFull, v.y, o),
+                    __shfl_xor_sync(kOrFull, v.z, o),
+                    __shfl_xor_sync(kOrFull, v.w, o));
+}
+
+// OR v into *p with reductions whose old value is unused; zero words skip
+__device__ __forceinline__ void red_or_words(unsigned* p, unsigned v) {
   if (v) atomicOr(p, v);
 }
-
-__device__ __forceinline__ void atomic_or_words(uint4* p, uint4 v) {
+__device__ __forceinline__ void red_or_words(uint2* p, uint2 v) {
   unsigned* q = reinterpret_cast<unsigned*>(p);
-  if (v.x) atomicOr(q, v.x);
-  if (v.y) atomicOr(q + 1, v.y);
-  if (v.z) atomicOr(q + 2, v.z);
-  if (v.w) atomicOr(q + 3, v.w);
+  red_or_words(q, v.x);
+  red_or_words(q + 1, v.y);
+}
+__device__ __forceinline__ void red_or_words(uint4* p, uint4 v) {
+  unsigned* q = reinterpret_cast<unsigned*>(p);
+  red_or_words(q, v.x);
+  red_or_words(q + 1, v.y);
+  red_or_words(q + 2, v.z);
+  red_or_words(q + 3, v.w);
 }
 
-// grid: x over groups of blockDim.y output rows, y over chunks of the
-// degree axis. Wv is the row width in units of V.
+struct OrArgs {
+  const void* f;               // [rows, Wv] vector words
+  const int32_t* in_nb;        // [M, D]
+  void* out;                   // [M, Wv]
+  void* scratch;               // split rows: [M, Wv] zero, then tickets,
+                               // left zero by the kernel
+  unsigned* tickets;           // [M, ntiles] zero
+  int64_t M, D, Wv;            // Wv: row width in vector words
+  int lanes;                   // L: lanes a group, vectors a tile
+  int64_t ntiles;              // tiles of L vectors a row
+  int64_t rows_unit;           // row units: rows a unit; chunk units: 0
+  int64_t chunk, nchunks;      // chunk units: in-neighbours a unit
+  int64_t units;               // base units x ntiles
+};
+
+// OR the gathered rows sidx[p0 + i * step], i < count, on vector w of
+// each into acc, kSlots loads in flight
 template <typename V>
-__global__ void __launch_bounds__(256)
-bucket_or_kernel(const V* __restrict__ f, const int32_t* __restrict__ in_nb,
-                 V* __restrict__ out, int64_t M, int64_t D, int64_t Wv,
-                 int64_t chunk, int atomic) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.y +
-                    threadIdx.y;
-  if (m >= M) return;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t d1 = d0 + chunk < D ? d0 + chunk : D;
-  const int32_t* __restrict__ idx = in_nb + m * D;
-  for (int64_t w = threadIdx.x; w < Wv; w += blockDim.x) {
-    V a0 = zero_words<V>(), a1 = zero_words<V>();
-    V a2 = zero_words<V>(), a3 = zero_words<V>();
-    int64_t d = d0;
-    for (; d + 4 <= d1; d += 4) {
-      const int64_t r0 = idx[d], r1 = idx[d + 1];
-      const int64_t r2 = idx[d + 2], r3 = idx[d + 3];
-      a0 = or_words(a0, f[r0 * Wv + w]);
-      a1 = or_words(a1, f[r1 * Wv + w]);
-      a2 = or_words(a2, f[r2 * Wv + w]);
-      a3 = or_words(a3, f[r3 * Wv + w]);
+__device__ __forceinline__ V gather_or(const V* __restrict__ f,
+                                       const int* sidx, int p0, int step,
+                                       int count, int64_t Wv, int64_t w) {
+  V acc = zero_words<V>();
+  if (w >= Wv) return acc;
+  for (int i = 0; i < count; i += kSlots) {
+    V v[kSlots];
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      v[u] = i + u < count
+                 ? __ldg(f + static_cast<int64_t>(sidx[p0 + (i + u) * step]) *
+                                 Wv + w)
+                 : zero_words<V>();
     }
-    for (; d < d1; ++d) {
-      a0 = or_words(a0, f[static_cast<int64_t>(idx[d]) * Wv + w]);
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) acc = or_words(acc, v[u]);
+  }
+  return acc;
+}
+
+// a unit of whole rows on vector w: group g takes rows g, g + G, ... and
+// walks its (row, in-neighbour) pairs kSlots at a time, so a degree-1
+// row copy keeps kSlots rows in flight; a row is written when its last
+// in-neighbour is in
+template <typename V>
+__device__ __forceinline__ void rows_or(const OrArgs& a, const int* sidx,
+                                        int64_t m0, int rows, int g,
+                                        int64_t w) {
+  const int G = 32 / a.lanes;
+  if (w >= a.Wv || g >= rows) return;
+  const V* __restrict__ f = static_cast<const V*>(a.f);
+  V* const out = static_cast<V*>(a.out);
+  const int D = static_cast<int>(a.D);
+  const int64_t Wv = a.Wv;
+  const int pairs = (rows - g + G - 1) / G * D;
+  int q = g, d = 0;                    // the next pair to OR in
+  V acc = zero_words<V>();
+  for (int s = 0; s < pairs; s += kSlots) {
+    V v[kSlots];
+    int lq = q, ld = d;                // the loads' own cursor
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      v[u] = s + u < pairs
+                 ? __ldg(f + static_cast<int64_t>(sidx[lq * D + ld]) * Wv + w)
+                 : zero_words<V>();
+      if (++ld == D) {
+        ld = 0;
+        lq += G;
+      }
     }
-    const V acc = or_words(or_words(a0, a1), or_words(a2, a3));
-    V* dst = out + m * Wv + w;
-    if (atomic) {
-      atomic_or_words(dst, acc);
-    } else {
-      *dst = acc;
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      if (s + u >= pairs) break;
+      acc = or_words(acc, v[u]);
+      if (++d == D) {
+        __stcs(out + (m0 + q) * Wv + w, acc);
+        acc = zero_words<V>();
+        d = 0;
+        q += G;
+      }
     }
   }
 }
 
+// at most 85 registers a thread, so three blocks of 8 warps fit an SM
 template <typename V>
-cudaError_t launch(const void* f, const void* in_nb, void* out, int64_t M,
-                   int64_t D, int64_t Wv, int64_t chunk,
-                   cudaStream_t stream) {
-  const int64_t lanes = (Wv + 31) / 32 * 32;
-  const int bx = static_cast<int>(lanes < 256 ? lanes : 256);
-  const int by = 256 / bx > 0 ? 256 / bx : 1;
-  const int64_t gx = (M + by - 1) / by;
-  const int64_t gy = (D + chunk - 1) / chunk;
-  if (gx > 0x7fffffffLL || gy > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  const dim3 block(bx, by);
-  bucket_or_kernel<V><<<grid, block, 0, stream>>>(
-      static_cast<const V*>(f), static_cast<const int32_t*>(in_nb),
-      static_cast<V*>(out), M, D, Wv, chunk, gy > 1 ? 1 : 0);
+__global__ void __launch_bounds__(kOrWarps * 32, 3)
+bucket_or_kernel(const OrArgs a) {
+  const int L = a.lanes, G = 32 / L;   // lanes a group, groups a warp
+  __shared__ int staged[kOrWarps][kSpan];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* const sidx = staged[warp];
+  const int g = lane / L, j = lane % L;
+  const V* __restrict__ f = static_cast<const V*>(a.f);
+  V* const out = static_cast<V*>(a.out);
+  const int64_t Wv = a.Wv, D = a.D;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kOrWarps;
+  for (int64_t u = static_cast<int64_t>(blockIdx.x) * kOrWarps + warp;
+       u < a.units; u += stride) {
+    // tile-minor: the warps of a row's tiles run side by side, sharing
+    // the index run through L2 and reading each gathered row at once
+    const int64_t base = u / a.ntiles, t = u - base * a.ntiles;
+    const int64_t w = t * L + j;       // this lane's vector of each row
+    int64_t m0, d0 = 0;
+    int rows = 1, n;
+    if (a.rows_unit) {
+      m0 = base * a.rows_unit;
+      rows = static_cast<int>(a.M - m0 < a.rows_unit ? a.M - m0
+                                                     : a.rows_unit);
+      n = rows * static_cast<int>(D);
+    } else {
+      m0 = base / a.nchunks;
+      d0 = (base - m0 * a.nchunks) * a.chunk;
+      n = static_cast<int>(D - d0 < a.chunk ? D - d0 : a.chunk);
+    }
+    // the unit's indices: one contiguous run of in_nb, every load issued
+    // before a store
+    const int32_t* src = a.in_nb + m0 * D + d0;
+    int r[kSpan / 32];
+#pragma unroll
+    for (int k = 0; k < kSpan / 32; ++k)
+      r[k] = lane + 32 * k < n ? __ldcs(src + lane + 32 * k) : 0;
+    __syncwarp();                      // the last unit's reads are done
+#pragma unroll
+    for (int k = 0; k < kSpan / 32; ++k)
+      if (lane + 32 * k < n) sidx[lane + 32 * k] = r[k];
+    __syncwarp();
+    if (a.rows_unit) {
+      rows_or<V>(a, sidx, m0, rows, g, w);
+      continue;
+    }
+    // a chunk of one row: group g ORs in-neighbours g, g + G, ..., and
+    // the groups meet in an OR across lanes
+    V acc = gather_or<V>(f, sidx, g, G, g < n ? (n - g + G - 1) / G : 0,
+                         Wv, w);
+    for (int o = L; o < 32; o <<= 1)
+      acc = or_words(acc, shfl_xor_words(acc, o));
+    if (a.nchunks == 1) {
+      if (g == 0 && w < Wv) __stcs(out + m0 * Wv + w, acc);
+      continue;
+    }
+    // a split row: OR into its scratch, then take a ticket of its tile;
+    // the tile's last chunk copies the scratch into out and zeroes the
+    // scratch and the ticket for the next call. Each lane's reductions
+    // are ordered before its ticket, and the other chunks' before the
+    // last one's reads of the scratch
+    V* const srow = static_cast<V*>(a.scratch) + m0 * Wv;
+    if (g == 0 && w < Wv) red_or_words(srow + w, acc);
+    __threadfence();
+    __syncwarp();
+    unsigned* const tk = a.tickets + m0 * a.ntiles + t;
+    unsigned ticket = 0;
+    if (lane == 0) ticket = atomicAdd(tk, 1u);
+    ticket = __shfl_sync(kOrFull, ticket, 0);
+    if (ticket != a.nchunks - 1) continue;
+    __threadfence();
+    const int64_t end = (t + 1) * L < Wv ? (t + 1) * L : Wv;
+    for (int64_t v = t * L + lane; v < end; v += 32) {
+      __stcs(out + m0 * Wv + v, __ldcg(srow + v));
+      srow[v] = zero_words<V>();
+    }
+    if (lane == 0) *tk = 0u;
+  }
+}
+
+template <typename V>
+cudaError_t launch_or(const OrArgs& a, cudaStream_t stream) {
+  // the card's resident blocks of this kernel, asked once per device
+  static int seen_dev = -1, seen_blocks = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != seen_dev) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, bucket_or_kernel<V>, kOrWarps * 32, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    seen_dev = dev;
+    seen_blocks = sms * per_sm;
+  }
+  int64_t blocks = (a.units + kOrWarps - 1) / kOrWarps;
+  if (blocks > seen_blocks) blocks = seen_blocks;  // warps stride the units
+  bucket_or_kernel<V>
+      <<<static_cast<unsigned>(blocks), kOrWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // f: [rows, W] words, in_nb: [M, D] int32 row indices into f, out: [M, W]
-// words; all contiguous on the device. When D > chunk the output must be
-// zeroed before the call. Launches on `stream` and returns the CUDA error
-// code of the launch (0 on success).
+// words; all contiguous on the device. The plan (ops/kernels.py,
+// bucket_or_plan): vectors of `vec` words, groups of `lanes` lanes over
+// tiles of `lanes` vectors, `ntiles` tiles a row; row units of
+// `rows_unit` rows (then chunk == D <= kRowMaxD, nchunks == 1), or chunk
+// units (rows_unit 0) of `chunk` in-neighbours, nchunks = ceil(D / chunk)
+// of them a row; `units` of each kind times ntiles. With nchunks > 1,
+// scratch is M * W + M * ntiles zero words (the split rows' OR, then
+// their tiles' tickets), which the launch leaves zero again. Launches on
+// `stream` and returns the CUDA error code of the launch (0 on success).
 extern "C" int bucket_or_launch(const void* f, const void* in_nb, void* out,
-                                int64_t M, int64_t D, int64_t W,
-                                int64_t chunk, void* stream) {
-  if (M <= 0 || D <= 0 || W <= 0 || chunk <= 0) {
+                                void* scratch, int64_t M, int64_t D,
+                                int64_t W, int64_t vec, int64_t lanes,
+                                int64_t ntiles, int64_t rows_unit,
+                                int64_t chunk, int64_t nchunks,
+                                void* stream) {
+  const int64_t vbytes = 4 * vec;
+  const bool lanes_ok = lanes == 1 || lanes == 2 || lanes == 4 ||
+                        lanes == 8 || lanes == 16 || lanes == 32;
+  if (M <= 0 || D <= 0 || W <= 0 || !lanes_ok ||
+      (vec != 1 && vec != 2 && vec != 4) || W % vec != 0 ||
+      reinterpret_cast<uintptr_t>(f) % vbytes != 0 ||
+      reinterpret_cast<uintptr_t>(out) % vbytes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int64_t Wv = W / vec;
+  if (ntiles < 1 || (ntiles - 1) * lanes >= Wv || ntiles * lanes < Wv ||
+      (lanes < 32 && ntiles != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows_unit > 0) {
+    if (rows_unit > 32 || D > kRowMaxD || rows_unit * D > kSpan ||
+        chunk != D || nchunks != 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (rows_unit < 0 || D <= kRowMaxD || chunk != kSpan ||
+             nchunks != (D + chunk - 1) / chunk ||
+             (nchunks > 1 &&
+              (!scratch ||
+               reinterpret_cast<uintptr_t>(scratch) % vbytes != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  OrArgs a;
+  a.f = f;
+  a.in_nb = static_cast<const int32_t*>(in_nb);
+  a.out = out;
+  a.scratch = scratch;
+  a.tickets = scratch ? static_cast<unsigned*>(scratch) + M * W : nullptr;
+  a.M = M;
+  a.D = D;
+  a.Wv = Wv;
+  a.lanes = static_cast<int>(lanes);
+  a.ntiles = ntiles;
+  a.rows_unit = rows_unit;
+  a.chunk = chunk;
+  a.nchunks = nchunks;
+  a.units = ntiles *
+            (rows_unit > 0 ? (M + rows_unit - 1) / rows_unit : M * nchunks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = W % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(f) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const cudaError_t err =
-      vec ? launch<uint4>(f, in_nb, out, M, D, W / 4, chunk, s)
-          : launch<unsigned>(f, in_nb, out, M, D, W, chunk, s);
+  cudaError_t err;
+  switch (vec) {
+    case 4: err = launch_or<uint4>(a, s); break;
+    case 2: err = launch_or<uint2>(a, s); break;
+    default: err = launch_or<unsigned>(a, s); break;
+  }
   return static_cast<int>(err);
 }
 

@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,11 +50,15 @@ def _count(wrapper) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
 
-# degree-axis length one block ORs before the row is split across
-# blocks (and merged with atomicOr); long enough that a bucket of
-# moderate degree runs without atomics, short enough that a hub row of
-# millions of in-neighbours spreads over thousands of blocks
-CHUNK = 256
+# bucket_or's plan (csrc/bucket_or.cu): a unit stages at most OR_SPAN
+# in-neighbour indices (kSpan); degrees up to OR_ROW_MAX_D (kRowMaxD) take
+# units of whole rows, larger ones units of OR_SPAN in-neighbours of one
+# row
+OR_SPAN = 256
+OR_ROW_MAX_D = 16
+# units a launch aims at when it can take fewer rows a unit: about three
+# times the warps an H100 holds at once (132 SMs x 24)
+OR_TARGET_UNITS = 8192
 # in-neighbours one warp of bucket_or_level gathers: eight batches of 32,
 # whose indices and masks it loads at once (kChunk in csrc/bucket_or.cu,
 # which refuses another value); a longer row is split across warps
@@ -60,8 +66,6 @@ LEVEL_CHUNK = 256
 # rows of a frontier bucket_or_level gathers from: its pair list packs a
 # row and a segment into one 32-bit word
 LEVEL_MAX_ROWS = 1 << 27
-# the grid's y dimension (chunks of one row) is at most 65535
-_MAX_CHUNKS = 65535
 
 
 def load_library() -> ctypes.CDLL:
@@ -70,9 +74,8 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load("bucket_or")
     fn = lib.bucket_or_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9 + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     fn = lib.bucket_or_level_launch
     if fn.argtypes is None:
@@ -151,6 +154,67 @@ def _check(f: torch.Tensor, in_nb: torch.Tensor,
             raise ValueError("out must be contiguous on f's device")
 
 
+class OrPlan(NamedTuple):
+    """How `bucket_or`'s kernel cuts one call (csrc/bucket_or.cu)."""
+    vec: int            # words a vector load (4, 2 or 1)
+    lanes: int          # lanes a group and vectors a tile, up to 32
+    ntiles: int         # tiles a row (above 1 only with 32 lanes)
+    rows_unit: int      # row units: rows a unit; 0 for chunk units
+    chunk: int          # in-neighbours a chunk unit (D for row units)
+    nchunks: int        # chunk units a row; > 1 splits every row
+    units: int          # units of the launch, each on one tile
+    scratch_words: int  # zeroed int32 words of the split rows, or 0
+
+
+@functools.lru_cache(maxsize=4096)
+def bucket_or_plan(m: int, degree: int, width: int, align: int) -> OrPlan:
+    """The kernel's plan for in_nb [m, degree] over rows of `width`
+    words (all >= 1), f and out aligned to `align` bytes: vectors of 16
+    bytes where W and the pointers allow, else 8 or 4; groups as wide as
+    a row's vectors, up to a warp, a wider row in tiles of 32 vectors."""
+    if min(m, degree, width) < 1 or align not in (1, 2, 4, 8, 16):
+        raise ValueError(f"bucket_or_plan takes positive m, degree and "
+                         f"width and an alignment of 1 to 16 bytes, got "
+                         f"{m}, {degree}, {width}, {align}")
+    vec = next(v for v in (4, 2, 1)
+               if width % v == 0 and align % (4 * v) == 0)
+    wv = width // vec
+    lanes = min(32, 1 << (wv - 1).bit_length())
+    ntiles = -(-wv // lanes)
+    if degree <= OR_ROW_MAX_D:
+        # enough rows to give every group of a warp one, fewer where a
+        # small bucket would leave the card short of units
+        rows_unit = min(OR_SPAN // degree, 32,
+                        max(32 // lanes, -(-m * ntiles // OR_TARGET_UNITS)))
+        chunk, nchunks = degree, 1
+        units = ntiles * -(-m // rows_unit)
+    else:
+        rows_unit, chunk = 0, OR_SPAN
+        nchunks = -(-degree // chunk)
+        units = ntiles * m * nchunks
+    scratch = m * width + m * ntiles if nchunks > 1 else 0
+    return OrPlan(vec, lanes, ntiles, rows_unit, chunk, nchunks, units,
+                  scratch)
+
+
+# bucket_or's split-row scratch, one a (device, stream), zeroed once: the
+# kernel zeroes what it used, so calls on one stream, which run in order,
+# find it zero with no fill before each launch
+_OR_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_OR_SCRATCH_LOCK = threading.Lock()
+
+
+def _or_scratch(words: int, device: torch.device,
+                stream: torch.cuda.Stream) -> torch.Tensor:
+    key = (stream.device_index, stream.cuda_stream)
+    with _OR_SCRATCH_LOCK:
+        buf = _OR_SCRATCH.get(key)
+        if buf is None or buf.numel() < words:
+            buf = _OR_SCRATCH[key] = torch.zeros(words, dtype=torch.int32,
+                                                 device=device)
+        return buf
+
+
 def bucket_or(f: torch.Tensor, in_nb: torch.Tensor,
               out: torch.Tensor | None = None) -> torch.Tensor:
     """OR of gathered frontier rows: f int32[rows, W], in_nb int32[M, D]
@@ -159,9 +223,11 @@ def bucket_or(f: torch.Tensor, in_nb: torch.Tensor,
     Every index must lie in [0, rows); the adjacency builders guarantee
     it (padding points at the dummy row N, which is all zeros). `out`,
     if given, is written in place: a contiguous [M, W] slice of a
-    level's preallocated result. On CUDA tensors the kernel runs and
-    `bucket_or.launches` counts it; on CPU tensors the plain version
-    runs."""
+    level's preallocated result. On CUDA tensors the kernel runs, one
+    launch a call on `bucket_or_plan`'s cut (a row past OR_SPAN
+    in-neighbours ORs its chunks into a scratch row that the launch
+    leaves zero), and `bucket_or.launches` counts it; on CPU tensors the
+    plain version runs."""
     _check(f, in_nb, out)
     if f.device.type == "cpu":
         return bucket_or_reference(f, in_nb, out)
@@ -175,15 +241,20 @@ def bucket_or(f: torch.Tensor, in_nb: torch.Tensor,
         return out
     if degree == 0:
         return out.zero_()
-    chunk = max(CHUNK, -(-degree // _MAX_CHUNKS))
-    if degree > chunk:
-        out.zero_()     # the split rows are merged with atomicOr
+    plan = bucket_or_plan(m, degree, width,
+                          math.gcd(f.data_ptr(), out.data_ptr(), 16))
+    stream = torch.cuda.current_stream(f.device)
+    scratch = None
+    if plan.scratch_words:      # the split rows' OR, then their tickets
+        scratch = _or_scratch(plan.scratch_words, f.device, stream)
     err = load_library().bucket_or_launch(
-        f.data_ptr(), in_nb.data_ptr(), out.data_ptr(), m, degree, width,
-        chunk, torch.cuda.current_stream(f.device).cuda_stream)
+        f.data_ptr(), in_nb.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), m, degree, width,
+        plan.vec, plan.lanes, plan.ntiles, plan.rows_unit, plan.chunk,
+        plan.nchunks, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"bucket_or kernel launch failed: CUDA error "
-                           f"{err} (M={m}, D={degree}, W={width})")
+                           f"{err} (M={m}, D={degree}, W={width}, {plan})")
     _count(bucket_or)
     return out
 

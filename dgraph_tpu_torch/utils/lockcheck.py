@@ -78,6 +78,9 @@ class LockOrderViolation(AssertionError):
             f"{second_stack}")
 
 
+# each thread's held stack; reset() swaps in a new local, so a stack left
+# by an earlier armed window (a lock acquired while armed, released after
+# disable) is dropped in every thread at once
 _tls = threading.local()
 _table_lock = threading.Lock()  # guards _edges/_violations mutation
 _edges: dict[tuple[str, str], str] = {}   # (a, b) -> first-seen stack
@@ -85,10 +88,6 @@ _violations: list[LockOrderViolation] = []
 _acquires = 0           # total witnessed acquisitions (overhead math)
 _enabled = False
 _strict = False
-_epoch = 0              # bumped by reset(): stale per-thread held
-                        # stacks from a previous armed window are
-                        # discarded lazily (reset() cannot reach
-                        # other threads' TLS)
 _orig_lock = None
 _rwlock_orig: dict[str, object] = {}
 
@@ -100,14 +99,11 @@ _PROJECT_ROOT = os.path.dirname(os.path.dirname(_THIS_FILE))
 
 
 def _held() -> list[str]:
-    h = getattr(_tls, "held", None)
-    if h is None or getattr(_tls, "epoch", -1) != _epoch:
-        # first touch in this thread since the last reset(): drop any
-        # phantom entries a prior armed window left behind (a lock
-        # acquired while armed but released after disable)
+    try:
+        return _tls.held
+    except AttributeError:
         h = _tls.held = []
-        _tls.epoch = _epoch
-    return h
+        return h
 
 
 def _site_frame():
@@ -140,11 +136,12 @@ def _check_acquire(name: str):
     global _acquires
     _acquires += 1
     held = _held()
-    if not held:
-        return
-    for outer in held:
-        if outer == name:
-            return  # reentrant/same-rank: never an order edge
+    if held and name not in held:  # reentrant/same-rank: never an edge
+        _record_edges(held, name)
+
+
+def _record_edges(held: list[str], name: str):
+    """Each held lock -> `name`, first seen or an inversion."""
     for outer in dict.fromkeys(held):
         edge = (outer, name)
         rev = (name, outer)
@@ -170,7 +167,10 @@ def _push(name: str):
 
 def _pop(name: str):
     held = _held()
-    for i in range(len(held) - 1, -1, -1):
+    if held and held[-1] == name:
+        held.pop()
+        return
+    for i in range(len(held) - 2, -1, -1):
         if held[i] == name:
             del held[i]
             return
@@ -193,7 +193,7 @@ class _WitnessLock:
             _check_acquire(self._name)
         got = self._real.acquire(blocking, timeout)
         if got and _enabled:
-            _push(self._name)
+            _held().append(self._name)
         return got
 
     def release(self):
@@ -207,12 +207,27 @@ class _WitnessLock:
     def locked(self) -> bool:
         return self._real.locked()
 
+    # the with-statement is the hot path: acquire() and release()
+    # inlined, since every call layer adds to the per-acquire overhead
+    # that the budget on the batcher workload counts
     def __enter__(self):
-        self.acquire()
+        global _acquires
+        name = self._name
+        if _enabled:
+            _acquires += 1
+            held = _held()
+            if held and name not in held:
+                _record_edges(held, name)
+            self._real.acquire()
+            if _enabled:
+                _held().append(name)
+        else:
+            self._real.acquire()
         return self
 
-    def __exit__(self, *exc):
-        self.release()
+    def __exit__(self, exc_type, exc, tb):
+        _pop(self._name)
+        self._real.release()
         return False
 
     def __repr__(self):
@@ -342,15 +357,13 @@ def disable() -> list[LockOrderViolation]:
 
 
 def reset():
-    global _acquires, _epoch
+    global _acquires, _tls
 
     with _table_lock:
         _edges.clear()
         _violations.clear()
         _acquires = 0
-        _epoch += 1  # invalidates every thread's held stack lazily
-    _tls.held = []
-    _tls.epoch = _epoch
+        _tls = threading.local()  # every thread's held stack starts empty
 
 
 def enabled() -> bool:

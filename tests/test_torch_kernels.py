@@ -59,6 +59,126 @@ def test_reference_matches_jax_gather_or(width, degree):
         want, np.bitwise_or.reduce(f[nb], axis=1))
 
 
+# bucket_or's cuts on the card: a degree-1 bucket (whole-row units), a
+# row one past a chunk unit, and a hub of several chunks
+CARD_SHAPES = {"degree-1": (300, 1), "split": (2, kernels.OR_SPAN + 1),
+               "hub": (1, 4 * kernels.OR_SPAN + 24)}
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("width", [1, 2, 3])
+def test_reference_matches_jax_gather_or_on_narrow_rows(width, shape):
+    m, d = CARD_SHAPES[shape]
+    f, ft = frontier(700, width, seed=width * 10 + d)
+    nb = in_neighbours(700, m, d, seed=d)
+    want = np.asarray(_gather_or(jnp.asarray(f), jnp.asarray(nb), d))
+    got = kernels.bucket_or_reference(ft, torch.from_numpy(nb))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_reference_matches_pallas_interpret_at_card_shapes(shape):
+    m, d = CARD_SHAPES[shape]
+    f, ft = frontier(700, 128, seed=d)
+    nb = in_neighbours(700, m, d, seed=m + d)
+    want = np.asarray(bucket_or_pallas(jnp.asarray(f), jnp.asarray(nb),
+                                       interpret=True))
+    got = kernels.bucket_or_reference(ft, torch.from_numpy(nb))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def kernel_cover(plan, m, degree, width):
+    """bucket_or_kernel's walk over a launch, written out from the CUDA
+    source: how often each (row, in-neighbour) is gathered on each tile,
+    and each vector of a row is held by a lane."""
+    wv = width // plan.vec
+    groups = 32 // plan.lanes
+    lanes = np.zeros(wv, np.int64)
+    for t in range(plan.ntiles):
+        for j in range(plan.lanes):
+            if t * plan.lanes + j < wv:
+                lanes[t * plan.lanes + j] += 1
+    pairs = np.zeros((plan.ntiles, m, degree), np.int64)
+    for u in range(plan.units):
+        base, t = divmod(u, plan.ntiles)     # tile-minor
+        if plan.rows_unit:
+            # group g takes rows g, g + groups, ... with all of their
+            # in-neighbours
+            m0 = base * plan.rows_unit
+            rows = min(plan.rows_unit, m - m0)
+            assert rows * degree <= kernels.OR_SPAN
+            for g in range(groups):
+                pairs[t, m0 + g:m0 + rows:groups, :] += 1
+        else:
+            # group g takes in-neighbours g, g + groups, ...
+            m0, c = divmod(base, plan.nchunks)
+            d0 = c * plan.chunk
+            n = min(plan.chunk, degree - d0)
+            assert n <= kernels.OR_SPAN
+            for g in range(groups):
+                pairs[t, m0, d0 + g:d0 + n:groups] += 1
+    return lanes, pairs
+
+
+# (M, D, W, alignment): level 1's degree-1 bucket and a core hub at W
+# 768, the reach path's W 2 and its hub, the card checks' edges (D 16/17
+# between unit kinds, 255-257 around a chunk, a hub), unaligned and odd
+# widths
+PLAN_CASES = [
+    (3000, 1, 768, 16), (2, 3000, 768, 16), (1, 2_097_152, 2, 16),
+    (100, 12, 2, 8), (1, (1 << 20) + 24, 128, 16), (70, 16, 768, 16),
+    (70, 17, 768, 16), (9, 255, 1100, 16), (9, 256, 1100, 4),
+    (9, 257, 1100, 16), (20, 16, 5, 4), (20, 17, 3, 4), (33, 2, 2, 8),
+    (7, 3, 2, 4), (40, 1, 1, 16), (5, 300, 37, 16), (77, 5, 1100, 8),
+]
+# and a grid: widths of one to 275 vectors, each vector size, degrees on
+# both sides of OR_ROW_MAX_D and of a chunk, 37 rows (a partial row unit)
+PLAN_CASES += [(37, d, w, 16) for w in (1, 2, 3, 4, 5, 33, 129, 1100)
+               for d in (1, 2, 15, 16, 17, 255, 257, 600)]
+
+
+@pytest.mark.parametrize("m,degree,width,align", PLAN_CASES)
+def test_plan_covers_every_row_in_neighbour_and_word_once(m, degree, width,
+                                                          align):
+    plan = kernels.bucket_or_plan(m, degree, width, align)
+    wv = width // plan.vec
+    # what the launcher accepts
+    assert width % plan.vec == 0 and align % (4 * plan.vec) == 0
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    assert plan.ntiles == 1 or plan.lanes == 32
+    assert (plan.ntiles - 1) * plan.lanes < wv <= plan.ntiles * plan.lanes
+    if plan.rows_unit:
+        assert degree <= kernels.OR_ROW_MAX_D
+        assert plan.rows_unit <= 32 and plan.chunk == degree
+        assert plan.nchunks == 1
+        assert plan.units == plan.ntiles * -(-m // plan.rows_unit)
+    else:
+        assert degree > kernels.OR_ROW_MAX_D
+        assert plan.chunk == kernels.OR_SPAN
+        assert plan.nchunks == -(-degree // plan.chunk)
+        assert plan.units == plan.ntiles * m * plan.nchunks
+    assert plan.scratch_words == (m * width + m * plan.ntiles
+                                  if plan.nchunks > 1 else 0)
+    lanes, pairs = kernel_cover(plan, m, degree, width)
+    assert (lanes == 1).all() and (pairs == 1).all()
+
+
+def test_plan_takes_the_widest_vector_the_row_and_pointers_allow():
+    assert kernels.bucket_or_plan(10, 1, 768, 16)[:3] == (4, 32, 6)
+    assert kernels.bucket_or_plan(10, 1, 768, 8)[:3] == (2, 32, 12)
+    assert kernels.bucket_or_plan(10, 1, 2, 16)[:3] == (2, 1, 1)
+    assert kernels.bucket_or_plan(10, 1, 2, 4)[:3] == (1, 2, 1)
+    assert kernels.bucket_or_plan(10, 1, 5, 16)[:3] == (1, 8, 1)
+
+
+@pytest.mark.parametrize("args", [
+    (0, 1, 1, 16), (1, 0, 1, 16), (1, 1, 0, 16), (1, 1, 1, 3),
+    (1, 1, 1, 32)])
+def test_plan_rejects(args):
+    with pytest.raises(ValueError):
+        kernels.bucket_or_plan(*args)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 11])
 def test_or_reduce_dim1(k):
     rng = np.random.default_rng(k)

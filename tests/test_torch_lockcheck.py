@@ -24,6 +24,7 @@ import pytest
 from dgraph_tpu.engine import batcher as jbatcher
 from dgraph_tpu.utils import rwlock as jrwlock
 from dgraph_tpu_torch.engine import batcher as tbatcher
+from dgraph_tpu_torch.engine import db as tdb
 from dgraph_tpu_torch.utils import lockcheck, rwlock
 from tests.torch_twins import reference_cases, run_twins
 
@@ -46,6 +47,21 @@ def test_the_reference_file_holds_its_cases():
 def test_lockcheck_through_both(case, tmp_path):
     run_twins("test_lockcheck", [case], tmp_path,
               compare=None if case in TIMED else "multiset")
+
+
+def test_the_budget_holds_with_the_port_s_engine_warm(tmp_path):
+    """The overhead case after the port's query path has served its
+    query in this process, as it has in a worker that ran the engine's
+    twins first: a warm query takes a few tenths of a millisecond and
+    about six acquisitions, so the witness's own per-acquire cost, not
+    the workload's first-call costs, decides the budget."""
+    db = tdb.GraphDB(device="cpu")
+    db.alter(schema_text="name: string @index(exact) .")
+    db.mutate(set_nquads='_:a <name> "alice" .', commit_now=True)
+    mb = tbatcher.MicroBatcher(db, window_us=0)
+    for _ in range(30):
+        mb.query_json('{ q(func: eq(name, "alice")) { uid name } }')
+    run_twins("test_lockcheck", list(TIMED), tmp_path, compare=None)
 
 
 def test_the_root_is_the_port_s_package():
