@@ -58,10 +58,14 @@ The vector search plane (similar_to), at bench_vectors.py's accelerator
 regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
 
 8. score_dot and score_int8 against their plain versions on the card,
-   element by element within the reordering bound, over b {1, 3, 256,
-   257} (257: two query tiles), d {16, 100, 128} x n {1, 777, 65,536,
-   1,000,064}, d 37 (rows off 16 bytes) and d 1024 (depth segments) at
-   n {777, 65,536}, corpora that start off 16-byte alignment, and int8
+   element by element within the reordering bound, every output also
+   written through `out=` off 16 bytes: score_dot over b {1, 2, 3, 4,
+   8, 16, 32, 64, 256, 257} and the crossover between its row and tile
+   routes +-1 (row-route query tiles and passes; 257: two query tiles),
+   d {16, 100, 128} x n {1, 777, 65,536, 262,144, 1,000,064}, d 37
+   (rows off 16 bytes) and d 1024 (depth segments) at n {777, 65,536,
+   262,144}; score_int8 over b {1, 3, 256, 257} at those shapes but
+   262,144 rows; corpora that start off 16-byte alignment, and int8
    list slices; score_int8_lists against its plain version on
    hand-built tables (empty, a one-row list, m = 1, m = M_TILE + 1,
    lists at both ends of the code block, a mixed batch), and an entry
@@ -72,7 +76,11 @@ regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
    against the same call with the plain version and, for 16 queries,
    the float64 oracle (rounding flips printed with their gap); two-stage
    recall@10 >= 0.99; `score_dot` alone beside its plain version,
-   torch.matmul and its bound;
+   torch.matmul and its bound; then at the exact tier's shapes (one
+   query over 262,144, 131,072, 65,536 and 16,384 rows, 256 over
+   250,000 and 1M) on the plan's route and the other, beside the plain version,
+   torch.matmul and the bound, and both routes over the batch at 262,144
+   rows with the crossover they give (from a flushed L2);
 10. the quantized IVF tier: `ivf.build` (assignment on the card), then
    `ivf.search` at the calibrated nprobe and every frontier budget, each
    search asserted to launch score_int8_lists once, over a table whose
@@ -203,7 +211,10 @@ are counted):
    request, equal to the plain score_dot, its scores within rounding of
    float64 and its recall against knn.topk_host at least the two-stage
    target; `@filter(similar_to)` over `has(embedding)` takes the exact
-   tier (score_dot once); p50 and p99 latency of each tier;
+   tier (score_dot once); p50 and p99 latency of each tier; each
+   kernel's device time at a request's shape, and beside score_dot the
+   rest of an exact request's device work (the corpus norms, the cosine
+   epilogue, padding and mask, `_topk_ordered`);
 30. pack algebra: LABEL_NODES fresh nodes with `label: string
    @index(term)` (words w0-w3 with probabilities 1/2, 1/2, 1/4, 1/4),
    bulk-loaded into the engine; every word's pack
@@ -443,8 +454,20 @@ SCORE_CHECK_ROWS = (1, 777, 65_536, 1_000_064)
 SCORE_CHECK_SHAPES = [(d, n) for d in (16, 100, 128)
                       for n in SCORE_CHECK_ROWS] + \
     [(d, n) for d in (37, 1024) for n in (777, 65_536)]
-# 257 queries take two query tiles of score_dot
+# score_int8's batches; 257 queries take two query tiles of score_dot's
+# tile route
 SCORE_CHECK_BATCHES = (1, 3, 256, 257)
+# score_dot's (d, n): the above and the one-query paths' 262,144 rows
+DOT_CHECK_SHAPES = [(d, n) for d in (16, 100, 128)
+                    for n in (1, 777, 65_536, 262_144, 1_000_064)] + \
+    [(d, n) for d in (37, 1024) for n in (777, 65_536, 262_144)]
+# phase 9's route table: one query over 262,144 and 131,072 rows (the
+# exact tier's shape when the write plane held that many embeddings),
+# 65,536 (WRITE_VECS) and 16,384 (its sharded tier's shard);
+# sharded_topk's shard and the bench batch
+DOT_ROUTE_SHAPES = ((1, 262_144, 128), (1, 131_072, 128), (1, 65_536, 128),
+                    (1, 16_384, 128), (256, 250_000, 128),
+                    (256, 1_000_000, 128))
 # BENCH_VECTORS.json's 100k regime (a CPU run of the JAX package, same
 # generator seeds): informational only
 BENCH_VECTORS_100K = {"nlist": 256, "nprobe": 4, "sampleRecall": 1.0,
@@ -3155,6 +3178,7 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
         "launches": 2 * len(lits), "max_abs_err": derr, "ms": dot_ms,
         "plain_ms": dot_plain, "bound_ms": dot_bound, "bound_by": dot_by,
         "library_ms": lib_ms})
+    rest = exact_rest_ms(knn, corpus, qv, SIMILAR_K, flush)
     del flush
     log(f"  a request's launch at its shapes: score_int8_lists "
         f"({len(table)} entries, worst error/bound {ratio:.4g}) "
@@ -3164,6 +3188,10 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
         f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f} ms, "
         f"torch.matmul {lib_ms:.4f} ms, bound {dot_bound:.4f} ms ({dot_by})"
         f" (device times from a flushed L2, CUDA events) | {card}")
+    log(f"  the rest of an exact request's device time at that shape, ms "
+        f"(flushed L2, CUDA events): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rest.items()) + f"; sum "
+        f"{sum(rest.values()):.4f} beside score_dot's {dot_ms:.4f} | {card}")
 
     # -- 30. pack algebra on the card --------------------------------------
     entries.append(label_phase(db, dev, card, kernels, setops, state))
@@ -3176,6 +3204,39 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
     entries += mesh_engine_phase(dev, card, db, golden, state, quant, lits,
                                  root_q)
     return entries
+
+
+def exact_rest_ms(knn, corpus, qv, k: int, flush) -> dict:
+    """Device ms of what an exact cosine request runs on the card beside
+    score_dot (`knn._score_device`, `knn.topk_device`), each from a
+    flushed L2: the corpus norms, which reread the corpus every request;
+    the rest of the cosine epilogue; the padding and the mask; the
+    ordered top-k. Measurement only."""
+    n = corpus.shape[0]
+    n_pad = -(-n // knn.BUCKET_SIZE) * knn.BUCKET_SIZE
+    dots = torch.matmul(qv, corpus.T)
+    cn = torch.sqrt(torch.sum(corpus * corpus, dim=1))
+
+    def cosine():
+        qn = torch.sqrt(torch.sum(qv * qv, dim=1))
+        denom = qn[:, None] * cn[None, :]
+        pos = denom > 0
+        return torch.where(pos, dots / torch.where(pos, denom, 1.0), 0.0)
+
+    def mask():
+        scores = torch.nn.functional.pad(dots, (0, n_pad - n),
+                                         value=-math.inf)
+        invalid = torch.arange(n_pad, device=dots.device) >= n
+        return scores.masked_fill_(invalid[None, :], -math.inf)
+
+    scores = mask()
+    return {
+        "norms": device_ms_cold(
+            lambda: torch.sqrt(torch.sum(corpus * corpus, dim=1)), 20, flush),
+        "cosine epilogue": device_ms_cold(cosine, 20, flush),
+        "padding and mask": device_ms_cold(mask, 20, flush),
+        "_topk_ordered": device_ms_cold(
+            lambda: knn._topk_ordered(scores, k), 20, flush)}
 
 
 def label_phase(db, dev, card: str, kernels, setops, state: dict) -> dict:
@@ -5825,26 +5886,40 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
         worst[key] = (max(worst[key][0], e), max(worst[key][1], r))
         shapes += 1
 
-    def both(corpus, codes, batches, label):
-        for b in batches:
+    def both(corpus, codes, dot_batches, int8_batches, label):
+        for b in sorted(set(dot_batches) | set(int8_batches)):
             q = torch.randn((b, corpus.shape[1]), device=dev, generator=gen)
-            check("dot", kernels.score_dot, kernels.score_dot_reference,
-                  corpus, q, f"score_dot b={b} {label}")
-            check("int8", kernels.score_int8, kernels.score_int8_reference,
-                  codes, q, f"score_int8 b={b} {label}")
+            if b in dot_batches:
+                check("dot", kernels.score_dot, kernels.score_dot_reference,
+                      corpus, q, f"score_dot b={b} {label} "
+                      f"{kernels.score_dot_plan(b, corpus.shape[1], 16)}")
+            if codes is not None and b in int8_batches:
+                check("int8", kernels.score_int8,
+                      kernels.score_int8_reference, codes, q,
+                      f"score_int8 b={b} {label}")
 
-    for d, n in SCORE_CHECK_SHAPES:
+    # score_dot's batches: the row route's query tiles and their passes,
+    # its crossover into the tile route and the neighbours of it, and two
+    # query tiles of the tile route
+    cross = kernels.DOT_ROWS_MAX_B
+    dot_batches = sorted({1, 2, 3, 4, 8, 16, 32, 64, 256, 257, cross - 1,
+                          cross, cross + 1})
+    for d, n in DOT_CHECK_SHAPES:
         corpus = torch.randn((n, d), device=dev, generator=gen)
-        codes = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
-                              dtype=torch.int8)
-        both(corpus, codes, SCORE_CHECK_BATCHES, f"n={n} d={d}")
+        codes = None
+        if (d, n) in SCORE_CHECK_SHAPES:
+            codes = torch.randint(-127, 128, (n, d), device=dev,
+                                  generator=gen, dtype=torch.int8)
+        both(corpus, codes, dot_batches, SCORE_CHECK_BATCHES,
+             f"n={n} d={d}")
         del corpus, codes
     # corpora that start off 16-byte alignment (a slice's offset)
     n, d = 65_536, 128
     flat = torch.randn(n * d + 1, device=dev, generator=gen)
     flat8 = torch.randint(-127, 128, (n * d + 3,), device=dev, generator=gen,
                           dtype=torch.int8)
-    both(flat[1:].view(n, d), flat8[3:].view(n, d), (3, 256),
+    both(flat[1:].view(n, d), flat8[3:].view(n, d),
+         (1, 3, cross, cross + 1, 256), (3, 256),
          f"n={n} d={d} off 16-byte alignment")
     del flat, flat8
     # list-like slices: contiguous row ranges of one resident code block
@@ -5894,11 +5969,70 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
                              f"queries")
     log(f"kernel check: score_dot, score_int8 and score_int8_lists within "
         f"the reordering bound of their plain versions on {shapes} shapes "
-        f"(b 1/3/256/257, d 16/37/100/128/1024, n 1..1,000,064, corpora off "
-        f"16-byte alignment, int8 list slices of 1-5,000 rows, "
+        f"(score_dot b {'/'.join(map(str, dot_batches))} (row route up to "
+        f"{cross}), score_int8 b 1/3/256/257; d 16/37/100/128/1024, n "
+        f"1..1,000,064, corpora off 16-byte alignment, every output "
+        f"written through out= off 16 bytes, int8 list slices of 1-5,000 "
+        f"rows, "
         f"{len(tables)} list tables); worst error/bound: score_dot "
         f"{worst['dot'][1]:.4g}, score_int8 {worst['int8'][1]:.4g} | {card}")
     return worst["dot"][0], worst["int8"][0]
+
+
+def dot_routes(kernels, dev, card: str) -> None:
+    """Phase 9's route table: score_dot at DOT_ROUTE_SHAPES on the plan's
+    route and on the other one, beside the plain version, torch.matmul
+    and the bound; then both routes over the batch at the first shape's
+    (n, d) and the crossover they give, beside the plan's. Device times
+    from a flushed L2, CUDA events."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+
+    def other(plan, b):
+        if plan.route == kernels.DOT_ROWS:
+            return kernels.DotPlan(kernels.DOT_TILE, plan.vec,
+                                   kernels.DOT_TILE_Q, 1)
+        tile = min(t for t in kernels.DOT_ROW_LANES if t >= min(b, 32))
+        return kernels.DotPlan(kernels.DOT_ROWS, plan.vec, tile,
+                               kernels.DOT_ROW_LANES[tile])
+
+    def cold(fn):
+        return device_ms_cold(fn, 20, flush)
+
+    names = {kernels.DOT_TILE: "tile", kernels.DOT_ROWS: "row"}
+    for b, n, d in DOT_ROUTE_SHAPES:
+        corpus = torch.randn((n, d), device=dev, generator=gen)
+        q = torch.randn((b, d), device=dev, generator=gen)
+        plan = kernels.score_dot_plan(b, d, 16)
+        alt = other(plan, b)
+        ms = cold(lambda: kernels.score_dot(corpus, q))
+        alt_ms = cold(lambda: kernels.score_dot(corpus, q, plan=alt))
+        plain = cold(lambda: kernels.score_dot_reference(corpus, q))
+        lib = cold(lambda: torch.matmul(q, corpus.T))
+        bound, by = score_bound_ms([(corpus, q)])
+        log(f"score_dot at ({b}, {n:,}, {d}): {names[plan.route]} route "
+            f"{ms:.4f} ms ({plan}), {names[alt.route]} route {alt_ms:.4f}, "
+            f"plain {plain:.4f}, torch.matmul {lib:.4f}, bound {bound:.4f} "
+            f"({by}) | {card}")
+        del corpus, q
+    n, d = DOT_ROUTE_SHAPES[0][1:]
+    corpus = torch.randn((n, d), device=dev, generator=gen)
+    cross = kernels.DOT_ROWS_MAX_B
+    tile = kernels.DotPlan(kernels.DOT_TILE, 4, kernels.DOT_TILE_Q, 1)
+    times, measured, lost = [], 0, False
+    for b in sorted({1, 2, 3, 4, 8, 16, 32, cross - 1, cross, cross + 1, 48,
+                     64}):
+        q = torch.randn((b, d), device=dev, generator=gen)
+        rows = other(tile, b)
+        r_ms = cold(lambda: kernels.score_dot(corpus, q, plan=rows))
+        t_ms = cold(lambda: kernels.score_dot(corpus, q, plan=tile))
+        times.append(f"b {b}: row {r_ms:.4f} tile {t_ms:.4f}")
+        lost = lost or r_ms >= t_ms
+        measured = measured if lost else b
+    del corpus, flush
+    log(f"score_dot's routes over the batch at (b, {n:,}, {d}), ms: "
+        f"{'; '.join(times)}; the row route wins up to b {measured} of this "
+        f"sweep, the plan takes it up to {cross} | {card}")
 
 
 def check_lists(kernels, codes, q, scales, slices, rng, label: str
@@ -6072,6 +6206,7 @@ def vector_plane(dev, card: str) -> list[dict]:
         f"({dot_by}) | {card}")
     del corpus_dev, q_dev
     torch.cuda.empty_cache()
+    dot_routes(kernels, dev, card)
 
     # -- 10. quantized IVF tier --------------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)

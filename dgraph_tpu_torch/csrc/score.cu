@@ -1,16 +1,23 @@
 // Similarity scoring kernels of the vector search plane, for Hopper (sm_90a).
 //
-// Two kernels, each replacing one TPU kernel of
+// Three kernels, replacing two TPU kernels of
 // dgraph_tpu/ops/pallas_kernels.py.
-// Neither uses tensor cores or TF32: the plane's correctness gate rests on
+// None uses tensor cores or TF32: the plane's correctness gate rests on
 // full float32 products, and each kernel differs from its plain PyTorch
 // version only in the order in which it sums the same float32 products.
 //
-// score_dot_kernel replaces score_dot_pallas (:123):
+// score_dot replaces score_dot_pallas (:123):
 //
 //     out[i, j] = sum_{k < d} Q[i, k] * C[j, k]      C: f32[n, d], Q: f32[b, d]
 //
-//   Bound: at the exact tier's shape (b = 256, n = 1M, d = 128) it does
+// on one of two routes, which the caller picks by the batch b
+// (score_dot_plan in ops/kernels.py) and passes in. On an H100 at
+// (b, 262,144, 128) the row route won up to b = 41 and lost from 48, where
+// the tile route's time, flat in b, is 0.46 ms: the plan takes the row
+// route up to 44 queries (score_dot_sweep.py, chip_smoke.py's phase 9).
+//
+// The tile route, score_dot_kernel, for large batches.
+//   Bound: at the bench batch (b = 256, n = 1M, d = 128) it does
 //   2bnd = 65.5 GFLOP for 0.5 GB of corpus and 1 GB of output, so float32
 //   operations bound it (0.98 ms at 67 TFLOP/s) with the output's bytes
 //   close behind (0.46 ms at 3.35 TB/s).
@@ -31,8 +38,45 @@
 //     sectors; offsets are 64-bit, since b * n can pass 2^31.
 //   * Rows that do not start on 16 bytes (d % 4 != 0, or a slice's offset)
 //     take 4-byte cp.async in the same kernel. Depth beyond what the query
-//     tile can hold in shared memory is cut into segments, one launch each,
-//     the later ones adding to the output.
+//     tile can hold beside the ring (DSEG, 128 floats) is cut into
+//     segments, one launch each, the later ones adding to the output.
+//   Below the crossover it loses: a batch of one does a batch of 256's
+//   arithmetic (1/256 of it useful) in one block of 8 warps an SM.
+//
+// The row route, score_dot_rows_kernel, for a few queries.
+//   Bound: bytes. At one query (1, 262,144, 128) it reads 134 MB of corpus
+//   for 67 MFLOP: 0.040 ms at 3.35 TB/s; operations pass bytes only from
+//   about b = 40 (2b flops a 4-byte corpus float against 67 TFLOP/s over
+//   3.35 TB/s).
+//   Design: stream the corpus once, with loads always in flight.
+//   * Up to QT queries of a pass (1, 2, 4, 8, 16 or 32; more take further
+//     passes) sit in shared memory for a depth segment of at most
+//     ROW_QFLOATS / QT floats; deeper rows take segments that add to the
+//     output. Lanes of a row read neighbouring float4 of a query:
+//     conflict-free with no padding.
+//   * A group of `lanes` lanes (a power of two up to a warp, no wider than
+//     a segment's float4) reads one corpus row, neighbouring lanes on
+//     neighbouring 16-byte words; a warp's groups read neighbouring rows.
+//     At one query 8 lanes a row were fastest, at 32 queries one.
+//   * A lane scores R rows at once (RowTile: R * QT partial sums) and asks
+//     for the next step's R loads before it multiplies this step's, so
+//     each warp keeps loads in flight through its arithmetic; its first
+//     loads go out before the block stages its queries.
+//   * The loads are marked evict-first (ld.global.cs): the corpus is read
+//     once, and leaving the L2 to the rest was faster than ld.global.nc.
+//   * A shuffle over the group finishes each dot; lanes of the group share
+//     the stores of the R x QT scores, a warp writing runs of rows of one
+//     query, as floats, so any output offset works.
+//   * Blocks of 8 warps and at most 32 KB of queries; a grid-stride loop
+//     over units of rows, the grid as many blocks as the card holds at
+//     once (occupancy asked once an instantiation) and no more than the
+//     units need, so a small n leaves no block without rows.
+//   * Rows that do not start on 16 bytes take 4-byte loads in the same
+//     kernel.
+//   On an H100 SXM at 700 W: 0.0578 ms at (1, 262,144, 128) against
+//   torch.matmul's 0.0598 and the tile route's 0.4534 (chip_smoke.py's
+//   phase 9); its arithmetic falls behind torch.matmul from 16 queries
+//   (shuffles and shared loads a score).
 //
 // score_int8_lists_kernel replaces score_int8_pallas (:158), and does a whole
 // quantized search's approximate stage in one launch. For every entry of a
@@ -70,6 +114,7 @@
 //   * Rows that do not start on 16 bytes (d % 16 != 0, or a slice's offset)
 //     take byte loads in the same kernel.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -282,28 +327,233 @@ int launch_dot(const float* corpus, const float* queries, float* out,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // blocks an SM holds, by chunks a segment (its query tile's depth);
+  // asked once each
+  constexpr int NCH = C::DSEG / C::KC;
+  static std::atomic<int> blocks_per_sm[NCH + 1];
   const int64_t ntiles = (n + C::BN - 1) / C::BN;
   const int64_t gy = (b + BQ - 1) / BQ;
   if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
   for (int64_t k0 = 0; k0 < d; k0 += C::DSEG) {
     const int ds = static_cast<int>(d - k0 < C::DSEG ? d - k0 : C::DSEG);
-    const int qstr = (ds + C::KC - 1) / C::KC * C::KC + 4;
+    const int nch = (ds + C::KC - 1) / C::KC;
+    const int qstr = nch * C::KC + 4;
     const size_t smem = (static_cast<size_t>(BQ) * qstr + C::RING) * 4;
-    int per_sm = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, THREADS, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) per_sm = 1;
+    int per_sm = blocks_per_sm[nch].load(std::memory_order_relaxed);
+    if (per_sm == 0) {
+      const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, THREADS, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (per_sm < 1) per_sm = 1;
+      blocks_per_sm[nch].store(per_sm, std::memory_order_relaxed);
+    }
     // one wave of blocks over the card, shared by the query tiles
     int64_t gx = (static_cast<int64_t>(sms) * per_sm + gy - 1) / gy;
     if (gx > ntiles) gx = ntiles;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
     kernel<<<grid, THREADS, smem, stream>>>(corpus, queries, out, n, b, d, k0,
                                             ds, k0 > 0 ? 1 : 0);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// -- score_dot, the row route -------------------------------------------------
+
+// floats of queries a block of the row route holds (32 KB): a pass of QT
+// queries takes depth segments of ROW_QFLOATS / QT floats
+constexpr int ROW_QFLOATS = 8192;
+
+// rows a lane scores at once, by queries a pass (1, 2, 4, 8, 16 or 32):
+// R * QT partial sums and 2 * R float4 of corpus a lane in registers; the
+// fastest of score_dot_sweep.py's builds at (b, 262,144, 128)
+template <int QT>
+struct RowTile {
+  static_assert(QT >= 1 && QT <= 32 && (QT & (QT - 1)) == 0, "QT");
+  static constexpr int R = QT <= 2 ? 4 : QT <= 8 ? 2 : 1;
+};
+
+template <int QT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+score_dot_rows_kernel(const float* __restrict__ corpus,
+                      const float* __restrict__ queries,
+                      float* __restrict__ out, int64_t n, int64_t d,
+                      int64_t q0, int bq, int64_t k0, int ds, int lanes,
+                      int accumulate) {
+  constexpr int R = RowTile<QT>::R;
+  constexpr int W = VEC ? 4 : 1;              // floats a load
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % lanes;               // lane of its row
+  const int groups = 32 / lanes;              // rows of a warp's step
+  const int span = lanes * W;                 // floats of a row a step
+  const int steps = (ds + span - 1) / span;   // steps a unit
+  const int64_t unit = static_cast<int64_t>(groups) * R;   // rows a unit
+  const int64_t units = (n + unit - 1) / unit;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (THREADS / 32);
+
+  // this lane's loads of step t of unit u: rows u * unit + lane / lanes +
+  // r * groups (a warp's groups read neighbouring rows at each r), floats
+  // k = sub * W + t * span of each; zero past the corpus. The corpus is
+  // read once, so its lines are marked to leave the L2 first
+  auto load = [&](float4 (&c)[R], int64_t u, int t) {
+    const int k = sub * W + t * span;
+    const int64_t row0 = u * unit + lane / lanes;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t row = row0 + r * groups;
+      const bool ok = u < units && row < n && k < ds;
+      const float* const p = corpus + row * d + k0 + k;
+      if (VEC) {
+        c[r] = ok ? __ldcs(reinterpret_cast<const float4*>(p))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        c[r] = make_float4(ok ? __ldcs(p) : 0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+
+  float acc[R][QT];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < QT; ++j) acc[r][j] = 0.f;
+  }
+  int64_t u = static_cast<int64_t>(blockIdx.x) * (THREADS / 32) +
+              threadIdx.x / 32;
+  int t = 0;
+  float4 c[R];
+  load(c, u, t);   // before the queries arrive, so the two latencies overlap
+
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);   // [bq][qstr]
+  const int qstr = (ds + 3) & ~3;
+  for (int idx = threadIdx.x; idx < bq * ds; idx += THREADS) {
+    const int j = idx / ds;
+    const int k = idx - j * ds;
+    qs[j * qstr + k] = __ldg(queries + (q0 + j) * d + k0 + k);
+  }
+  __syncthreads();
+
+  while (u < units) {
+    // the next step's loads go out before this step's arithmetic
+    const bool last = t == steps - 1;
+    const int64_t un = last ? u + warps : u;
+    const int tn = last ? 0 : t + 1;
+    float4 cn[R];
+    load(cn, un, tn);
+
+    const int k = sub * W + t * span;
+    if (k < ds) {
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        if (j < bq) {
+          const float* const qj = qs + j * qstr + k;
+          if (VEC) {
+            const float4 q = *reinterpret_cast<const float4*>(qj);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              acc[r][j] = fmaf(q.x, c[r].x, acc[r][j]);
+              acc[r][j] = fmaf(q.y, c[r].y, acc[r][j]);
+              acc[r][j] = fmaf(q.z, c[r].z, acc[r][j]);
+              acc[r][j] = fmaf(q.w, c[r].w, acc[r][j]);
+            }
+          } else {
+            const float q = *qj;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              acc[r][j] = fmaf(q, c[r].x, acc[r][j]);
+            }
+          }
+        }
+      }
+    }
+    if (last) {
+      // a shuffle over the row's lanes finishes each dot; bq is the same
+      // for the whole block and u for the whole warp, so every lane
+      // shuffles
+      const int64_t row0 = u * unit + lane / lanes;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int64_t row = row0 + r * groups;
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+          if (j < bq) {
+            for (int o = lanes / 2; o > 0; o /= 2) {
+              acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
+            }
+            // the group's lanes share the stores
+            if ((r * QT + j) % lanes == sub && row < n) {
+              float* const o = out + (q0 + j) * n + row;
+              *o = accumulate ? acc[r][j] + *o : acc[r][j];
+            }
+          }
+          acc[r][j] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] = cn[r];
+    u = un;
+    t = tn;
+  }
+}
+
+template <int QT, bool VEC>
+int launch_rows(const float* corpus, const float* queries, float* out,
+                int64_t n, int64_t b, int64_t d, int lanes,
+                cudaStream_t stream) {
+  auto kernel = score_dot_rows_kernel<QT, VEC>;
+  // blocks an SM holds at the most queries' shared memory; asked once
+  static const int per_sm = [kernel] {
+    int blocks = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &blocks, kernel, THREADS, ROW_QFLOATS * 4) == cudaSuccess
+               ? blocks : 0;
+  }();
+  const int sms = sm_count();
+  if (sms <= 0 || per_sm <= 0) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  const int64_t unit = static_cast<int64_t>(32 / lanes) * RowTile<QT>::R;
+  const int64_t units = (n + unit - 1) / unit;
+  int64_t grid = static_cast<int64_t>(sms) * per_sm;
+  const int64_t wanted = (units + THREADS / 32 - 1) / (THREADS / 32);
+  if (grid > wanted) grid = wanted;
+  constexpr int DSEG = ROW_QFLOATS / QT;      // a multiple of 4
+  for (int64_t q0 = 0; q0 < b; q0 += QT) {
+    const int bq = static_cast<int>(b - q0 < QT ? b - q0 : QT);
+    for (int64_t k0 = 0; k0 < d; k0 += DSEG) {
+      const int ds = static_cast<int>(d - k0 < DSEG ? d - k0 : DSEG);
+      const size_t smem = static_cast<size_t>(bq) * ((ds + 3) & ~3) * 4;
+      kernel<<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(
+          corpus, queries, out, n, d, q0, bq, k0, ds, lanes, k0 > 0 ? 1 : 0);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
+}
+
+template <bool VEC>
+int launch_rows_of(int q_tile, const float* corpus, const float* queries,
+                   float* out, int64_t n, int64_t b, int64_t d, int lanes,
+                   cudaStream_t stream) {
+  switch (q_tile) {
+    case 1: return launch_rows<1, VEC>(corpus, queries, out, n, b, d, lanes,
+                                       stream);
+    case 2: return launch_rows<2, VEC>(corpus, queries, out, n, b, d, lanes,
+                                       stream);
+    case 4: return launch_rows<4, VEC>(corpus, queries, out, n, b, d, lanes,
+                                       stream);
+    case 8: return launch_rows<8, VEC>(corpus, queries, out, n, b, d, lanes,
+                                       stream);
+    case 16: return launch_rows<16, VEC>(corpus, queries, out, n, b, d, lanes,
+                                         stream);
+    case 32: return launch_rows<32, VEC>(corpus, queries, out, n, b, d, lanes,
+                                         stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // -- score_int8_lists --------------------------------------------------------
@@ -459,21 +709,40 @@ int launch_lists(const int8_t* codes, const float* queries,
 }  // namespace
 
 // corpus: float32 [n, d], queries: float32 [b, d], out: float32 [b, n]; all
-// contiguous on the device; n, b, d >= 1. Launches on `stream`, once a depth
-// segment of 128 floats, and returns the CUDA error code of the launches (0
-// on success).
+// contiguous on the device; n, b, d >= 1. `route` 0 is the tile route
+// (q_tile 256, lanes 1): one launch a depth segment of DSEG (128) floats.
+// `route` 1 is the row route (q_tile 1, 2, 4, 8, 16 or 32 queries a pass;
+// `lanes` a row, a power of two up to 32): one launch a pass of q_tile
+// queries and a depth segment of ROW_QFLOATS / q_tile floats. `vec` is 4 (16-byte
+// corpus loads: d % 4 == 0 and the corpus on 16 bytes) or 1. Launches on
+// `stream` and returns the CUDA error code of the launches (0 on success);
+// cudaErrorInvalidValue for a plan it cannot run.
 extern "C" int score_dot_launch(const void* corpus, const void* queries,
                                 void* out, int64_t n, int64_t b, int64_t d,
+                                int route, int vec, int q_tile, int lanes,
                                 void* stream) {
-  if (n <= 0 || b <= 0 || d <= 0) {
+  const bool aligned = d % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
+  if (n <= 0 || b <= 0 || d <= 0 || (vec != 1 && vec != 4) ||
+      (vec == 4 && !aligned)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
-  auto fn = vec ? launch_dot<true> : launch_dot<false>;
-  return fn(static_cast<const float*>(corpus),
-            static_cast<const float*>(queries), static_cast<float*>(out), n,
-            b, d, static_cast<cudaStream_t>(stream));
+  const auto* c = static_cast<const float*>(corpus);
+  const auto* q = static_cast<const float*>(queries);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    if (q_tile != BQ || lanes != 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return vec == 4 ? launch_dot<true>(c, q, o, n, b, d, s)
+                    : launch_dot<false>(c, q, o, n, b, d, s);
+  }
+  if (route != 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return vec == 4 ? launch_rows_of<true>(q_tile, c, q, o, n, b, d, lanes, s)
+                  : launch_rows_of<false>(q_tile, c, q, o, n, b, d, lanes, s);
 }
 
 // What a caller of score_int8_lists_launch sizes its table by, at depth d:

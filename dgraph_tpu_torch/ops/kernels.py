@@ -9,7 +9,9 @@ Counterpart of `dgraph_tpu/ops/pallas_kernels.py`:
   which has the bit pattern of the reference's `uint32` words.
 - `score_dot` is the float32 similarity score of the exact vector tiers
   (`csrc/score.cu`, replacing `score_dot_pallas`,
-  `pallas_kernels.py:123`).
+  `pallas_kernels.py:123`), on one of two routes that
+  `score_dot_plan` picks by the batch: a resident tile of 256 queries
+  for large batches, a stream of corpus rows for a few queries.
 - `score_int8_lists` is the approximate stage of the quantized IVF
   tier in one launch, the int8-code scores of every probed list over a
   work table (`csrc/score.cu`, replacing `score_int8_pallas`,
@@ -472,9 +474,8 @@ def load_score_library() -> ctypes.CDLL:
     lib = _build.load("score")
     fn = lib.score_dot_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     fn = lib.score_int8_lists_launch
     if fn.argtypes is None:
@@ -539,6 +540,55 @@ def int8_lists_table(slices, m_tile: int | None = None
     table = np.array(rows, np.int64).reshape(-1, 5)
     return table, (np.concatenate(qidx) if qidx else
                    np.empty(0, np.int64)), off
+
+
+# score_dot's routes (csrc/score.cu): the tile route keeps a tile of
+# DOT_TILE_Q queries in shared memory and suits large batches; the row
+# route streams the corpus once for a few queries, a query tile of them a
+# pass, each corpus row read by a group of lanes
+DOT_TILE, DOT_ROWS = 0, 1
+DOT_TILE_Q = 256
+# floats of queries a row-route block holds (ROW_QFLOATS): a pass of q
+# queries takes depth segments of DOT_ROW_QFLOATS // q floats
+DOT_ROW_QFLOATS = 8192
+# the row route's query tiles, each with the most lanes a row: the
+# fastest of score_dot_sweep.py at (b, 262,144, 128); fewer lanes a row
+# cost fewer shuffles a score as the queries grow
+DOT_ROW_LANES = {1: 8, 2: 8, 4: 8, 8: 4, 16: 2, 32: 1}
+# the largest batch the row route takes, above it the tile route: at
+# (b, 262,144, 128) the row route won up to 41 queries and lost at 48
+# (score_dot_sweep.py and chip_smoke.py's phase 9 on an H100); the tile
+# route's time is flat in b up to 256
+DOT_ROWS_MAX_B = 44
+
+
+class DotPlan(NamedTuple):
+    """How `score_dot`'s kernel runs one call (csrc/score.cu)."""
+    route: int      # DOT_TILE or DOT_ROWS
+    vec: int        # floats a corpus load: 4 (16 bytes) or 1
+    q_tile: int     # queries a pass: DOT_TILE_Q, or a row-route tile
+    lanes: int      # lanes reading one corpus row; 1 on the tile route
+
+
+@functools.lru_cache(maxsize=4096)
+def score_dot_plan(b: int, d: int, align: int) -> DotPlan:
+    """The kernel's plan for b queries of depth d over a corpus aligned
+    to `align` bytes: 16-byte loads where d and the corpus allow, else
+    4-byte ones; the row route up to DOT_ROWS_MAX_B queries, in passes of
+    the smallest query tile that holds them (of the largest above that),
+    with lanes a row up to DOT_ROW_LANES and no wider than a depth
+    segment's loads; the tile route above."""
+    if min(b, d) < 1 or align not in (1, 2, 4, 8, 16):
+        raise ValueError(f"score_dot_plan takes positive b and d and an "
+                         f"alignment of 1 to 16 bytes, got {b}, {d}, "
+                         f"{align}")
+    vec = 4 if d % 4 == 0 and align == 16 else 1
+    if b > DOT_ROWS_MAX_B:
+        return DotPlan(DOT_TILE, vec, DOT_TILE_Q, 1)
+    q_tile = next((t for t in DOT_ROW_LANES if t >= b), max(DOT_ROW_LANES))
+    loads = -(-min(d, DOT_ROW_QFLOATS // q_tile) // vec)
+    return DotPlan(DOT_ROWS, vec, q_tile,
+                   min(1 << (loads - 1).bit_length(), DOT_ROW_LANES[q_tile]))
 
 
 def score_dot_reference(corpus: torch.Tensor,
@@ -616,12 +666,15 @@ def _into(res: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
 
 
 def score_dot(corpus: torch.Tensor, queries: torch.Tensor,
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              out: torch.Tensor | None = None,
+              plan: DotPlan | None = None) -> torch.Tensor:
     """float32 scores queries . corpus^T: corpus float32[n, d], queries
     float32[b, d] -> float32[b, n], accumulated in float32 (no TF32).
     `out`, if given, is a contiguous [b, n] float32 tensor written in
-    place. On CUDA tensors the kernel runs and `score_dot.launches`
-    counts it; on CPU tensors the plain version runs."""
+    place. On CUDA tensors the kernel runs on `score_dot_plan`'s route
+    (or on `plan`, to time one route against the other) and
+    `score_dot.launches` counts the call; on CPU tensors the plain
+    version runs."""
     _check_score("score_dot", corpus, queries, torch.float32, out)
     if corpus.device.type == "cpu":
         return _into(score_dot_reference(corpus, queries), out)
@@ -633,12 +686,14 @@ def score_dot(corpus: torch.Tensor, queries: torch.Tensor,
         return out
     if d == 0:
         return out.zero_()
+    if plan is None:
+        plan = score_dot_plan(b, d, math.gcd(corpus.data_ptr(), 16))
     err = load_score_library().score_dot_launch(
         corpus.data_ptr(), queries.data_ptr(), out.data_ptr(), n, b, d,
-        torch.cuda.current_stream(corpus.device).cuda_stream)
+        *plan, torch.cuda.current_stream(corpus.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"score_dot kernel launch failed: CUDA error "
-                           f"{err} (n={n}, b={b}, d={d})")
+                           f"{err} (n={n}, b={b}, d={d}, {plan})")
     _count(score_dot)
     return out
 

@@ -19,6 +19,7 @@ import io
 import json
 import sqlite3
 import threading
+from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -153,21 +154,86 @@ def test_bulk_shard_outputs_equal(tmp_path, monkeypatch):
         (tmp_path / "ref" / "manifest.json").read_bytes()
 
 
+LIVE_SIDES = {"ref": (JDB, jlive, jsnap, jwire, {}),
+              "port": (TDB, tlive, tsnap, twire, {"device": "cpu"})}
+# the highest explicit uid of MIXED (<10>)
+MIXED_MAX_UID = 10
+
+
+class _StageFirst:
+    """An executor that runs each batch as it is submitted: every batch
+    is staged before the loader resolves the next one."""
+
+    def __init__(self, max_workers=None):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args):
+        fut = Future()
+        fut.set_result(fn(*args))
+        return fut
+
+
+def _live_dumps(side, rdf, schedule=None, monkeypatch=None):
+    """(stats, dumps) of `side`'s live loader over `rdf` (transactions
+    of 3, one worker so commits keep file order).
+
+    The loader leases a blank node's uid on the caller's thread while
+    its worker stages the batches before it, and staging an explicit
+    uid bumps the lease counter: without a fixed start, where `_:blank`
+    lands depends on which thread ran first. So the uid counter starts
+    past the file's explicit uids in both passes. `schedule` forces the
+    order: "stage_first" stages each batch before the next is resolved,
+    "lease_first" holds the first staging until a blank uid is leased."""
+    G, live, snap, wire, kw = LIVE_SIDES[side]
+    db = G(prefer_device=False, **kw)
+    db.coordinator.bump_uids(MIXED_MAX_UID)
+    if schedule == "stage_first":
+        monkeypatch.setattr(live, "ThreadPoolExecutor", _StageFirst)
+    elif schedule == "lease_first":
+        leased = threading.Event()
+        stage = db._stage
+
+        class Told(live.XidMap):
+            def assign(self, xid):
+                uid = super().assign(xid)
+                leased.set()
+                return uid
+
+        def stage_after_lease(txn, nqs):
+            assert leased.wait(30), "no blank uid was leased"
+            return stage(txn, nqs)
+        monkeypatch.setattr(live, "XidMap", Told)
+        db._stage = stage_after_lease
+    stats = live.live_load(db, [str(rdf)], schema=MIXED_SCHEMA,
+                           batch_size=3, concurrency=1)
+    db.rollup_all(0)
+    return stats, _dumps(db, snap, wire)
+
+
 def test_live_load_matches_bulk_in_both(tmp_path):
-    """The live loader (transactions of 3, one worker so commits keep
-    file order) gives the same dumps in both packages."""
+    """The live loader gives the same dumps in both packages."""
     rdf = tmp_path / "mix.rdf"
     rdf.write_text(MIXED)
-    out = []
-    for G, live, snap, wire, kw in ((JDB, jlive, jsnap, jwire, {}),
-                                    (TDB, tlive, tsnap, twire,
-                                     {"device": "cpu"})):
-        db = G(prefer_device=False, **kw)
-        stats = live.live_load(db, [str(rdf)], schema=MIXED_SCHEMA,
-                               batch_size=3, concurrency=1)
-        db.rollup_all(0)
-        out.append((stats, _dumps(db, snap, wire)))
-    assert out[1] == out[0]
+    assert _live_dumps("port", rdf) == _live_dumps("ref", rdf)
+
+
+@pytest.mark.parametrize("orders", [("stage_first", "lease_first"),
+                                    ("lease_first", "stage_first")])
+def test_live_load_twin_holds_under_either_schedule(tmp_path, monkeypatch,
+                                                    orders):
+    """The two passes raced apart: one staged its explicit uids before
+    the blank's lease, the other after. The dumps stay equal."""
+    rdf = tmp_path / "mix.rdf"
+    rdf.write_text(MIXED)
+    ref = _live_dumps("ref", rdf, orders[0], monkeypatch)
+    monkeypatch.undo()
+    assert _live_dumps("port", rdf, orders[1], monkeypatch) == ref
 
 
 # -- remote_live_load against a recording endpoint ---------------------------

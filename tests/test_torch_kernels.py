@@ -632,9 +632,10 @@ def test_score_wrapper_rejects(name, case):
 
 
 def test_score_source_builds_beside_bucket_or():
-    """csrc/score.cu holds two kernels behind two C entry points, the
-    dense float32 product and the int8 list-table product; the old
-    template that served both element types is gone."""
+    """csrc/score.cu holds the dense float32 product (two routes, the
+    tile and the row kernel, behind one C entry point) and the int8
+    list-table product; the old template that served both element types
+    is gone."""
     assert (_build.CSRC_DIR / "score.cu").exists()
     assert _build.library_path("score").parent == _build.BUILD_DIR
     src = (_build.CSRC_DIR / "score.cu").read_text()
@@ -645,6 +646,135 @@ def test_score_source_builds_beside_bucket_or():
     assert "score_kernel<" not in src
     assert "__fmul_rn" in src and "__fadd_rn" in src
     assert "cp.async" in src
+    assert "score_dot_kernel(" in src and "score_dot_rows_kernel(" in src
+
+
+# -- score_dot's routes: the plan and the row route's walk -------------------
+
+CROSS = kernels.DOT_ROWS_MAX_B
+# rows a lane of the row route scores at once, by queries a pass
+# (RowTile in csrc/score.cu: change both together)
+ROW_R = {1: 4, 2: 4, 4: 2, 8: 2, 16: 1, 32: 1}
+
+
+def test_row_tiles_match_the_source():
+    src = (_build.CSRC_DIR / "score.cu").read_text()
+    assert "static constexpr int R = QT <= 2 ? 4 : QT <= 8 ? 2 : 1;" in src
+    assert "constexpr int ROW_QFLOATS = 8192;" in src
+    assert kernels.DOT_ROW_QFLOATS == 8192
+    assert sorted(kernels.DOT_ROW_LANES) == sorted(ROW_R)
+    for q_tile in ROW_R:
+        assert f"case {q_tile}: return launch_rows<{q_tile}, VEC>" in src
+
+
+@pytest.mark.parametrize("d", [16, 37, 100, 128, 1024])
+def test_score_dot_plan_routes_by_batch_and_alignment(d):
+    """The row route up to the crossover, in the smallest query tile that
+    holds the batch (passes of 32 above 32), lanes no wider than a depth
+    segment's loads; the tile route past the crossover; 16-byte loads
+    only for d % 4 == 0 on a 16-byte corpus."""
+    for align in (4, 8, 16):
+        vec = 4 if d % 4 == 0 and align == 16 else 1
+        for b in (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, CROSS - 1, CROSS):
+            plan = kernels.score_dot_plan(b, d, align)
+            q_tile = min(t for t in ROW_R if t >= min(b, 32))
+            seg = min(d, kernels.DOT_ROW_QFLOATS // q_tile)
+            loads = -(-seg // vec)
+            lanes = min(kernels.DOT_ROW_LANES[q_tile],
+                        1 << (loads - 1).bit_length())
+            assert plan == kernels.DotPlan(kernels.DOT_ROWS, vec, q_tile,
+                                           lanes), (b, align)
+            assert 1 <= plan.lanes <= 32 and plan.lanes & (plan.lanes - 1) == 0
+        for b in (CROSS + 1, 64, 256, 257, 100_000):
+            assert kernels.score_dot_plan(b, d, align) == kernels.DotPlan(
+                kernels.DOT_TILE, vec, kernels.DOT_TILE_Q, 1)
+
+
+def test_score_dot_plan_rejects():
+    for args in ((0, 128, 16), (1, 0, 16), (-1, 4, 16), (1, 128, 3),
+                 (1, 128, 32), (1, 128, 0)):
+        with pytest.raises(ValueError):
+            kernels.score_dot_plan(*args)
+
+
+def row_route_cover(plan, n, b, d):
+    """score_dot_rows_kernel's walk over a call, written out from the CUDA
+    source: (how often each (query, row, depth) product is summed into a
+    lane's partial sum, how often each score is stored, how often a
+    store adds to the output). The grid-stride loop hands every unit to
+    one warp whatever the grid, so the walk takes the units in turn."""
+    r_rows, w = ROW_R[plan.q_tile], plan.vec
+    groups = 32 // plan.lanes
+    unit = groups * r_rows
+    span = plan.lanes * w
+    dseg = kernels.DOT_ROW_QFLOATS // plan.q_tile
+    summed = np.zeros((b, n, d), np.int64)
+    stored = np.zeros((b, n), np.int64)
+    added = np.zeros((b, n), np.int64)
+    lane = np.arange(32)
+    sub, grp = lane % plan.lanes, lane // plan.lanes
+    for q0 in range(0, b, plan.q_tile):
+        bq = min(plan.q_tile, b - q0)
+        for k0 in range(0, d, dseg):
+            ds = min(dseg, d - k0)
+            for u in range(-(-n // unit)):
+                for t in range(-(-ds // span)):
+                    k = sub * w + t * span
+                    for r in range(r_rows):
+                        row = u * unit + grp + r * groups
+                        ok = (row < n) & (k < ds)
+                        for i in range(w):
+                            summed[q0:q0 + bq, row[ok], k0 + k[ok] + i] += 1
+                for r in range(r_rows):
+                    for j in range(bq):
+                        mine = (sub == (r * plan.q_tile + j) % plan.lanes)
+                        row = (u * unit + grp + r * groups)[mine]
+                        row = row[row < n]
+                        stored[q0 + j, row] += 1
+                        added[q0 + j, row] += k0 > 0
+    return summed, stored, added
+
+
+@pytest.mark.parametrize("n,b,d,align", [
+    (777, 3, 37, 16), (1, 1, 16, 16), (130, 1, 128, 16), (70, 33, 1024, 16),
+    (50, 17, 100, 4), (9, CROSS, 24, 16)])
+def test_row_route_sums_every_product_once(n, b, d, align):
+    """Every product of the row route's plan summed exactly once, every
+    score stored once a depth segment, the later segments adding: the
+    kernel's sum is the plain version's products in another order."""
+    plan = kernels.score_dot_plan(b, d, align)
+    assert plan.route == kernels.DOT_ROWS
+    summed, stored, added = row_route_cover(plan, n, b, d)
+    segments = -(-d // (kernels.DOT_ROW_QFLOATS // plan.q_tile))
+    assert (summed == 1).all()
+    assert (stored == segments).all()
+    assert (added == segments - 1).all()
+
+
+@pytest.mark.parametrize("b", [1, 2, CROSS, CROSS + 1])
+def test_score_dot_reference_matches_pallas_interpret_by_route(b):
+    """The plain version against score_dot_pallas in interpret mode at
+    the batches on either side of the crossover, within the reordering
+    bound; the wrapper on CPU tensors runs it with no launch, whatever
+    plan it is handed."""
+    from dgraph_tpu.ops.pallas_kernels import score_dot_pallas
+
+    rng = np.random.default_rng(1500 + b)
+    corpus = rng.standard_normal((1024, 48), dtype=np.float32)
+    q = rng.standard_normal((b, 48), dtype=np.float32)
+    plan = kernels.score_dot_plan(b, 48, 16)
+    assert plan.route == (kernels.DOT_ROWS if b <= CROSS
+                          else kernels.DOT_TILE)
+    ct, qt = torch.from_numpy(corpus), torch.from_numpy(q)
+    before = kernels.score_dot.launches
+    got = kernels.score_dot(ct, qt, plan=plan)
+    assert kernels.score_dot.launches == before
+    assert torch.equal(got, kernels.score_dot_reference(ct, qt))
+    want = np.asarray(score_dot_pallas(jnp.asarray(corpus), jnp.asarray(q),
+                                       interpret=True))
+    assert want.shape == (b, 1024)
+    assert (np.abs(got.numpy().astype(np.float64) - want)
+            <= reorder_bound(q, corpus)).all()
 
 
 # -- score_int8_lists: the work table and the plain version ------------------
