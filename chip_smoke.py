@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit (nvcc); builds the port's
-kernels from `dgraph_tpu_torch/csrc/` into `build/dgraph_tpu_torch/`.
+Needs one CUDA card, the CUDA toolkit (nvcc) and g++; builds the port's
+kernels and its host runtime from `dgraph_tpu_torch/csrc/` into
+`build/dgraph_tpu_torch/`.
 Phases, each of which fails the run:
 
 1. card: name and power limit (nvidia-smi);
-2. build: one nvcc per kernel source, all started together, timed;
+2. build: one nvcc per kernel source and g++ for the host runtime
+   (csrc/native.cc), all started together, timed;
 3. kernels against their plain PyTorch versions on the card, bit-exact:
    bucket_or over W in {1, 2, 3, 5, 128, 768, 1,100} (4-, 8- and 16-byte
    vectors, a partial last tile), degrees 1-6 and 16-17 (whole-row units
@@ -396,8 +398,26 @@ step, nothing launched by the load):
    launched in the alpha (its `stats` op) at least once a similar_to op
    that reached it.
 
+Every plane runs with the host runtime on (the default), its bindings'
+call counts set to 0 just before it and read just after. Last, in
+build/host/ (removed at the end):
+
+54. the host runtime: the library loaded from build/dgraph_tpu_torch/;
+   the write plane (with the query, serving, cluster and cold planes
+   inside it) and the load plane took its branches (NativeWal,
+   NativeKV, rdf_parse, tokenize_batch, json_rows, the gv codec, and
+   query_flat_json_total moved; the cold plane's stores and phase 50's
+   raft logs are NativeKV stores, checked in those phases); then, with
+   the runtime on and switched off in turns (on, off, off, on):
+   bulk_load RDF/s of the golden graph at scale 2 from a file (equal
+   tablets), the 75 goldens' encode ms on a scale-1 card engine (equal
+   data), and a fresh child's anonymous and file-backed RSS holding
+   phase 41's seed (one bench_500m group) in a TabletStore, NativeKV
+   against PyKV.
+
 The planes run in the order BFS, graph ops, write path, queries,
-serving, the cluster and cold storage, set algebra, vectors, load. Each
+serving, the cluster and cold storage, set algebra, vectors, load, the
+host runtime. Each
 figure is printed beside the card's name and power limit. Then one
 JSON line of kernels, the card's line, and last `{"ok": true, "device":
 {...}}`. Exits non-zero, printing no result, without a card or without
@@ -737,12 +757,13 @@ def profile_window(run, batches: int, unit: str, card: str) -> None:
 
 
 def build_kernels(_build, names: list[str]) -> None:
-    """Phase 2: one nvcc per kernel source, all started together."""
+    """Phase 2: one compiler per source, all started together: nvcc for
+    each kernel source, g++ for the host runtime."""
     t0 = time.perf_counter()
     _build.build_all(names)
     build_s = time.perf_counter() - t0
-    log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} with nvcc "
-        f"(sm_90a), in parallel, in {build_s:.2f} s")
+    log(f"build: {', '.join(f'csrc/{_build.source_path(n).name}' for n in names)}"
+        f" with nvcc (sm_90a) and g++, in parallel, in {build_s:.2f} s")
     for name in names:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
@@ -4414,6 +4435,7 @@ def cluster_processes(dev, card: str, state: dict, snap: str,
             rec_s, name = cluster_restart(pc, rc)
         finally:
             rc.close()
+    kinds = raft_dir_kinds(os.path.join(work, "data"))
     log(f"cluster: ProcessCluster of {PROC_ZEROS} zeros and "
         f"{CLUSTER_REPLICAS} `python -m dgraph_tpu_torch node --device "
         f"{dev}` alphas with --wal, bulk-booted from phase 48's snapshot, "
@@ -4423,7 +4445,34 @@ def cluster_processes(dev, card: str, state: dict, snap: str,
         f"{pct(lat, 99):.3f} (host clock), score_int8_lists launches in "
         f"the alphas (their stats op) {launched}; {name} SIGKILLed, "
         f"{PROC_WRITES} writes on the new leader, restarted from its WAL "
-        f"and caught up {rec_s:.1f} s after the kill | {card}")
+        f"and caught up {rec_s:.1f} s after the kill; each node's raft "
+        f"DiskStorage (--wal) a NativeKV store, keys {kinds} | {card}")
+
+
+def raft_dir_kinds(data_dir: str) -> dict:
+    """Each stopped node's --wal directory under `data_dir`, opened as a
+    NativeKV: no PyKV snapshot, some keys, and each alpha's raft
+    hardstate (the children's DiskStorage took the native branch).
+    Returns {node: keys}."""
+    from dgraph_tpu_torch import native
+
+    kinds = {}
+    for name in sorted(os.listdir(data_dir)):
+        d = os.path.join(data_dir, name)
+        if os.path.exists(os.path.join(d, "SNAPSHOT.py")):
+            raise AssertionError(f"phase 50: {name}'s raft log is a PyKV")
+        kv = native.NativeKV(d)
+        try:
+            kinds[name] = len(kv)
+            if not len(kv) or (name.startswith("alpha")
+                               and kv.get(b"hs") is None):
+                raise AssertionError(f"phase 50: {name}'s raft store holds "
+                                     f"{len(kv)} keys and no hardstate")
+        finally:
+            kv.close()
+    if not any(n.startswith("alpha") for n in kinds):
+        raise AssertionError(f"phase 50: no alpha raft directory {kinds}")
+    return kinds
 
 
 def cluster_apps(pc, apps0: list[str], apps: list[str]) -> None:
@@ -4649,10 +4698,17 @@ def cold_plane(dev, card: str, state: dict) -> list[dict]:
 
 
 def cold_engine(store: str, dev, **kw):
+    """A store-backed card engine; its store is the host runtime's LSM
+    store (NativeKV), the default."""
+    from dgraph_tpu_torch import native
     from dgraph_tpu_torch.engine.db import GraphDB
 
-    return GraphDB(store_dir=store, device=dev,
-                   vec_index_min_rows=WRITE_VECS // 2, **kw)
+    db = GraphDB(store_dir=store, device=dev,
+                 vec_index_min_rows=WRITE_VECS // 2, **kw)
+    if not isinstance(db.tablet_store.kv, native.NativeKV):
+        raise AssertionError(f"cold plane: the store is "
+                             f"{type(db.tablet_store.kv).__name__}")
+    return db
 
 
 def cold_load(dev, card: str, state: dict, work: str, cold: dict) -> None:
@@ -6694,6 +6750,304 @@ def setops_plane(dev, card: str) -> dict:
     return entry
 
 
+# -- the host runtime (phase 54) ----------------------------------------------
+
+HOST_SCALE = 2                     # phase 54's bulk input: the golden graph
+HOST_TURNS = (True, False, False, True)  # the runtime on / switched off
+HOST_RSS_GROUPS = 1                # bench_500m groups of phase 41's seed
+# the bindings each plane must have called (its counts set to 0 just
+# before it and read just after): the write plane runs the query,
+# serving, cluster and cold planes inside it
+HOST_BRANCHES = {
+    "write_plane": ("NativeWal", "NativeKV", "rdf_parse", "tokenize_batch",
+                    "json_rows", "gv_encode", "gv_decode"),
+    "load_plane": ("tokenize_batch", "json_rows", "gv_encode"),
+}
+RSS_CHILD = """
+import json, resource, sys, tracemalloc
+sys.path.insert(0, sys.argv[3])
+from dgraph_tpu_torch import native
+if sys.argv[2] == "off":
+    native.available = lambda: False
+from dgraph_tpu_torch.engine.lazy_tablets import TabletStore
+page = resource.getpagesize() // 1024
+def mem():
+    # KiB: resident pages less the file-backed (shared) ones, those,
+    # and the peak resident set since exec where the kernel reports it
+    # (getrusage's would include the parent's, from before the exec)
+    with open("/proc/self/statm") as f:
+        rss, shared = (int(x) for x in f.read().split()[1:3])
+    with open("/proc/self/status") as f:
+        hwm = [int(ln.split()[1]) for ln in f if ln.startswith("VmHWM:")]
+    return {"RssAnon": (rss - shared) * page, "RssFile": shared * page,
+            "VmHWM": hwm[0] if hwm else -1}
+start = mem()
+tracemalloc.start()
+store = TabletStore(sys.argv[1], "cpu")
+opened = dict(mem(), py=tracemalloc.get_traced_memory()[0] // 1024)
+preds = store.preds()
+blobs = sum(len(store.kv.get(b"tab:" + p.encode())) for p in preds)
+py, py_peak = tracemalloc.get_traced_memory()
+read = dict(mem(), py=py // 1024, py_peak=py_peak // 1024)
+print(json.dumps({"kv": type(store.kv).__name__, "preds": len(preds),
+                  "blob_bytes": blobs, "start": start, "opened": opened,
+                  "read": read}))
+store.close()
+"""
+
+
+class runtime_switched:
+    """The host runtime on (the default) or switched off as the tests
+    switch it: `native.available` False, and `native.json_rows` (which,
+    as in the reference, does not consult `available`) refusing every
+    block, so flat blocks take the dict emitter."""
+
+    def __init__(self, on: bool):
+        from dgraph_tpu_torch import native
+
+        self.native, self.on = native, on
+
+    def __enter__(self):
+        n = self.native
+        self.saved = n.available, n.json_rows
+        if not self.on:
+            n.available = lambda: False
+            n.json_rows = lambda n_rows, cols: None
+        return self
+
+    def __exit__(self, *exc):
+        self.native.available, self.native.json_rows = self.saved
+
+
+def plane_branches(counts: dict, card: str) -> None:
+    """Phase 54, first part: each plane's binding calls; the planes
+    that must take the native branches took them."""
+    for name, (calls, flat) in counts.items():
+        moved = {k: v for k, v in calls.items() if v}
+        log(f"host runtime on {name}: binding calls {moved}; "
+            f"query_flat_json_total +{flat:g} | {card}")
+    for name, need in HOST_BRANCHES.items():
+        calls, flat = counts[name]
+        missing = [b for b in need if calls[b] <= 0]
+        if missing or flat <= 0:
+            raise AssertionError(f"phase 54: {name} took no native branch "
+                                 f"through {missing} (flat JSON +{flat})")
+
+
+def tablet_contents(db) -> dict:
+    """Every tablet's edges, values and index by content (the index's
+    token order follows the tokenizer, its lists do not)."""
+    return {p: ({u: v.tolist() for u, v in t.edges.items()},
+                repr(sorted(t.values.items())),
+                {k: v.tolist() for k, v in t.index.items()})
+            for p, t in dict.items(db.tablets)}
+
+
+def host_bulk(dev, card: str, work: str) -> None:
+    """Phase 54: bulk_load of the golden graph at HOST_SCALE from an RDF
+    file, then save_snapshot and a boot from it (load_snapshot), the
+    runtime on and off in turns: RDF/s and seconds, the same tablets."""
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.ingest.bulk import bulk_load
+    from dgraph_tpu_torch.storage.snapshot import load_snapshot, save_snapshot
+
+    schema, lines = golden_dataset().generate(HOST_SCALE)
+    path = os.path.join(work, "golden.rdf")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    snap = os.path.join(work, "golden.snap")
+    rates = {True: [], False: []}
+    saves = {True: [], False: []}
+    boots = {True: [], False: []}
+    want = None
+    for on in HOST_TURNS:
+        native.reset_calls()
+        with runtime_switched(on):
+            t0 = time.perf_counter()
+            db = bulk_load([path], schema=schema, device=dev)
+            dt = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            save_snapshot(db, snap)
+            saves[on].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            booted = load_snapshot(snap, device=dev)
+            boots[on].append(time.perf_counter() - t0)
+        calls = native.call_counts()
+        if any((calls[b] > 0) != on for b in ("rdf_parse", "tokenize_batch",
+                                              "gv_encode", "gv_decode")):
+            raise AssertionError(f"phase 54: bulk_load and the snapshot with "
+                                 f"the runtime {'on' if on else 'off'} "
+                                 f"called {calls}")
+        got = tablet_contents(db)
+        if want is None:
+            want = got
+        if got != want or tablet_contents(booted) != want:
+            raise AssertionError("phase 54: bulk_load's or the booted "
+                                 "engine's tablets differ with the runtime "
+                                 "on and off")
+        rates[on].append(len(lines) / dt)
+        del db, booted
+    log(f"host runtime: bulk_load of the golden graph at scale {HOST_SCALE} "
+        f"({len(lines)} RDF, explicit uids, from a file) into GraphDB(device="
+        f"{dev}), turns on/off/off/on: native map {rates[True][0]:.0f} and "
+        f"{rates[True][1]:.0f} RDF/s, Python grammar (runtime off) "
+        f"{rates[False][0]:.0f} and {rates[False][1]:.0f} RDF/s; "
+        f"save_snapshot ({os.path.getsize(snap) / 2**20:.1f} MiB) "
+        f"{saves[True][0]:.3f} and {saves[True][1]:.3f} s native, "
+        f"{saves[False][0]:.3f} and {saves[False][1]:.3f} s off; boot "
+        f"(load_snapshot onto {dev}) {boots[True][0]:.3f} and "
+        f"{boots[True][1]:.3f} s native, {boots[False][0]:.3f} and "
+        f"{boots[False][1]:.3f} s off; equal tablets | {card}")
+
+
+def host_encode(dev, card: str) -> None:
+    """Phase 54: the 75 goldens' encode time (`latency.encoding_ns` of
+    query_json) on a fresh scale-1 card engine, the runtime on (flat
+    blocks through `json_rows`) and off (the dict emitter) in turns:
+    equal bytes."""
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.engine.db import GraphDB
+    from dgraph_tpu_torch.utils import metrics
+
+    schema, lines = golden_dataset().generate(1)
+    db = GraphDB(device=dev, device_min_edges=1)
+    db.alter(schema_text=schema)
+    db.mutate(set_nquads="\n".join(lines))
+    golden = golden_queries()
+
+    def one_pass():
+        data, enc = [], 0
+        for _, text, _ in golden:
+            body = json.loads(db.query_json(text))
+            data.append(body["data"])
+            enc += body["extensions"]["latency"]["encoding_ns"]
+        return data, enc / 1e6
+
+    want, _ = one_pass()                   # warm: plans, tiles, memos
+    ms = {True: [], False: []}
+    for on in HOST_TURNS:
+        native.reset_calls()
+        before = metrics.counters_snapshot()
+        with runtime_switched(on):
+            got, enc_ms = one_pass()
+        flat = metrics.counters_delta(before).get("query_flat_json_total", 0)
+        rows = native.json_rows.calls
+        if got != want or (flat > 0) != on or (rows > 0) != on:
+            raise AssertionError(f"phase 54: goldens with the runtime "
+                                 f"{'on' if on else 'off'}: equal "
+                                 f"{got == want}, flat {flat}, json_rows "
+                                 f"{rows}")
+        ms[on].append(enc_ms)
+        if on:
+            flat_on = flat
+    log(f"host runtime: the {len(golden)} goldens' encode (query_json's "
+        f"latency.encoding_ns summed) on a scale-1 GraphDB(device={dev}, "
+        f"device_min_edges=1), turns on/off/off/on: columnar json_rows "
+        f"{ms[True][0]:.3f} and {ms[True][1]:.3f} ms ({flat_on:g} flat "
+        f"blocks a pass), dict emitter (runtime off) {ms[False][0]:.3f} and "
+        f"{ms[False][1]:.3f} ms; equal data | {card}")
+
+
+def host_rss(card: str, work: str) -> None:
+    """Phase 54: phase 41's seed (HOST_RSS_GROUPS bench_500m groups, its
+    published widths) in a TabletStore of each kind, opened by a fresh
+    child process: the Python heap and resident memory it holds and
+    their peaks, NativeKV against PyKV (the runtime switched off)."""
+    import subprocess
+
+    from dgraph_tpu_torch.engine.lazy_tablets import TabletStore
+
+    b5 = bench_500m()
+    rows, procs = {}, {}
+    for on in (True, False):
+        path = os.path.join(work, f"seed-{'on' if on else 'off'}")
+        with runtime_switched(on):
+            t0 = time.perf_counter()
+            edges, nbytes = seed_500m(b5, TabletStore(path, "cpu"),
+                                      HOST_RSS_GROUPS, b5.U_DEFAULT)
+            rows[on] = {"seed_s": time.perf_counter() - t0,
+                        "nbytes": nbytes, "edges": edges}
+        # the two children run at once, each in its own process
+        procs[on] = subprocess.Popen(
+            [sys.executable, "-c", RSS_CHILD, path, "on" if on else "off",
+             REPO], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    try:
+        for on, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 54: RSS child failed:\n"
+                                     f"{err[-2000:]}")
+            rows[on].update(json.loads(out.splitlines()[-1]))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    on, off = rows[True], rows[False]
+    if (on["kv"], off["kv"]) != ("NativeKV", "PyKV") or \
+            on["preds"] != off["preds"] or \
+            on["blob_bytes"] != off["blob_bytes"]:
+        raise AssertionError(f"phase 54: the RSS children read {rows}")
+
+    def peak(r):
+        kib = r["read"]["VmHWM"]
+        return f"{kib / 1024:.1f} MiB" if kib >= 0 else "not reported"
+
+    def held(r, at):
+        return (f"Python heap {r[at]['py'] / 1024:.1f} MiB, resident "
+                f"anonymous +{(r[at]['RssAnon'] - r['start']['RssAnon']) / 1024:.1f}"
+                f" MiB and file-backed +"
+                f"{(r[at]['RssFile'] - r['start']['RssFile']) / 1024:.1f} MiB")
+
+    log(f"host runtime: phase 41's seed ({HOST_RSS_GROUPS} bench_500m group, "
+        f"U {b5.U_DEFAULT}, {on['edges']} edges, {on['preds']} tablets, "
+        f"{on['nbytes'] / 2**20:.1f} MiB of blobs; seeded in "
+        f"{on['seed_s']:.2f} s on NativeKV, {off['seed_s']:.2f} s on PyKV) "
+        f"in a TabletStore opened by a fresh process (/proc/self/statm; "
+        f"{on['start']['RssAnon'] / 1024:.1f} MiB resident at start): "
+        f"NativeKV open {held(on, 'opened')}; every blob read "
+        f"{held(on, 'read')}, Python heap peak {on['read']['py_peak'] / 1024:.1f}"
+        f" MiB, peak RSS {peak(on)}; PyKV (runtime "
+        f"off) open {held(off, 'opened')}; every blob read {held(off, 'read')},"
+        f" Python heap peak {off['read']['py_peak'] / 1024:.1f} MiB, peak RSS "
+        f"{peak(off)} | {card}")
+
+
+def host_plane(dev, card: str, counts: dict) -> None:
+    """Phase 54: the host runtime (`dgraph_tpu_torch.native`,
+    csrc/native.cc, built with g++ in phase 2), in build/host/ (removed
+    at the end): it is loaded; every plane took its branches; then bulk
+    RDF/s, the goldens' encode ms and a seeded store's RSS with the
+    runtime on and switched off."""
+    import shutil
+    import subprocess
+
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.ops import _build
+
+    if not native.available():
+        raise AssertionError("phase 54: the host runtime is not loaded")
+    lib = os.path.relpath(native._lib._name, REPO)
+    if lib != os.path.relpath(_build.library_path("native"), REPO):
+        raise AssertionError(f"phase 54: loaded {lib}")
+    gxx = subprocess.run([_build.gxx_path(), "--version"],
+                         capture_output=True, text=True).stdout.splitlines()
+    log(f"host runtime: {lib} from dgraph_tpu_torch/csrc/native.cc, "
+        f"{gxx[0] if gxx else 'g++'} {' '.join(_build.GXX_FLAGS)}, "
+        f"available() True | {card}")
+    plane_branches(counts, card)
+    work = os.path.join(REPO, "build", "host")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        host_bulk(dev, card, work)
+        host_encode(dev, card)
+        host_rss(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6708,19 +7062,29 @@ def main() -> int:
     card = backend.card_info()
     log(f"card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} numpy {np.__version__}")
-    build_kernels(_build, ["bucket_or", "score", "bitmap_and"])
+    build_kernels(_build, ["bucket_or", "score", "bitmap_and", "native"])
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.utils import metrics
 
     # the set-algebra plane runs before the vector plane: after the
     # vector plane's profiles, torch.profiler (torch 2.11, CUDA 12.8)
     # records no device activity for the rest of the process
     entries = []
+    counts = {}
     for plane in (bfs_plane, graph_plane, write_plane, setops_plane,
                   vector_plane, load_plane):
         t0 = time.perf_counter()
+        native.reset_calls()
+        before = metrics.counters_snapshot()
         got = plane(dev, card)
+        counts[plane.__name__] = (native.call_counts(), metrics.counters_delta(
+            before).get("query_flat_json_total", 0))
         entries += got if isinstance(got, list) else [got] if got else []
         torch.cuda.empty_cache()
         log(f"{plane.__name__}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host_plane(dev, card, counts)
+    log(f"host_plane: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"kernels": entries}))
     log(f"wall {time.perf_counter() - t_start:.1f} s")

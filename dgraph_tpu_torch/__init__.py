@@ -53,7 +53,8 @@ Ported so far:
   process (per-shard loops, collectives as copies between the shards'
   devices); `GraphDB(mesh=...)` runs its sharded tiers on them;
 - cold storage and ingest: a tablet store larger than RAM under a byte
-  budget (`engine.lazy_tablets`, `storage.kvfallback`), read-ahead
+  budget (`engine.lazy_tablets` over the host runtime's LSM store,
+  `native.NativeKV`), read-ahead
   (`engine.prefetch`), the CDC-invalidated result cache
   (`engine.result_cache`), backups and point-in-time restore to local
   or S3 URIs (`storage.backup`, `storage.uri`), bulk seeding
@@ -70,7 +71,7 @@ Ported so far:
   `watchdog`) and the command line (`cli`;
   `python -m dgraph_tpu_torch alpha` serves GraphQL± from the card);
 - the cluster: Raft (`cluster.raft`, persisted through
-  `storage.kvfallback`), its TCP transport, the deterministic harness,
+  `native.NativeKV`), its TCP transport, the deterministic harness,
   the leader-following client, Zero's state machine and the rebalance
   planner (`cluster.transport`, `harness`, `client`, `zero`,
   `rebalance`), replicated engine groups and cross-cluster standby
@@ -79,7 +80,12 @@ Ported so far:
   rebalancer (`cluster.federated`, `topology`), the networked alpha
   and zero servers (`cluster.service`), a multi-process deployment
   (`bench.spawn`) and `node`, `standby` and `rebalance` on the command
-  line; an alpha's engine runs on its `device`, a zero touches no card.
+  line; an alpha's engine runs on its `device`, a zero touches no card;
+- the host runtime (`native`): the LSM KV store and WAL, the
+  group-varint codec, the RDF parser, the batch tokenizer, the columnar
+  JSON row writer and the match and merge-count loops, C++ in
+  `csrc/native.cc` that g++ builds at first use; the storage, ingest
+  and query layers take its branches, as the reference's do.
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`;
 see `backend.resolve_device`.

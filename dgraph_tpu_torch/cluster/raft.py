@@ -12,7 +12,8 @@ That makes elections, partitions, and crash-replay deterministic in
 tests (no wall clock, no sleeps), mirroring how the reference's Run
 loops pump etcd raft's Ready channel (worker/draft.go:760).
 
-Persistence: hardstate + log entries + snapshot survive restart the way
+Persistence uses the host runtime's KV store (csrc/native.cc):
+hardstate + log entries + snapshot survive restart the way
 raftwal.DiskStorage persists to Badger (raftwal/storage.go:37).
 
 Log compaction: `take_snapshot(data, index)` truncates the log below
@@ -21,8 +22,8 @@ receive InstallSnapshot (ref worker/snapshot.go:107 streamed snapshots,
 raft.go MsgSnap path).
 
 Port of `dgraph_tpu/cluster/raft.py`: a copy, its imports pointed at
-this package. `DiskStorage` keeps its keys in `storage/kvfallback.PyKV`
-(the reference's branch for a build without its C++ runtime), so a raft
+this package. `DiskStorage` keeps its keys in `native.NativeKV`, and in
+`storage/kvfallback.PyKV` when the runtime is switched off, so a raft
 directory either package writes opens in the other.
 """
 
@@ -132,13 +133,17 @@ class MemoryStorage:
 
 
 class DiskStorage(MemoryStorage):
-    """Raft persistence over a KV store (the raftwal role:
+    """Raft persistence over the native KV store (the raftwal role:
     raftwal/storage.go keys entry/hardstate/snapshot per node)."""
 
     def __init__(self, directory: str, sync: bool = False):
         super().__init__()
-        from dgraph_tpu_torch.storage.kvfallback import PyKV
-        self._kv = PyKV(directory, sync)
+        from dgraph_tpu_torch import native
+        if native.available():
+            self._kv = native.NativeKV(directory, sync)
+        else:
+            from dgraph_tpu_torch.storage.kvfallback import PyKV
+            self._kv = PyKV(directory, sync)
         hs = self._kv.get(b"hs")
         if hs is not None:
             self.term, self.voted_for = _wire_load(hs)

@@ -189,11 +189,11 @@ class GraphDB:
         self.coordinator = Coordinator()
         self.tablet_store = None
         if store_dir is not None:
-            # disk-backed mode: tablet base state lives in the store and
-            # materializes per predicate on demand, on this engine's
-            # device, evicting LRU under tablet_budget (the Badger
-            # role, posting/mvcc.go:143 — datasets larger than RAM load
-            # and serve). See engine/lazy_tablets.py.
+            # disk-backed mode: tablet base state lives in the native
+            # LSM store and materializes per predicate on demand, on
+            # this engine's device, evicting LRU under tablet_budget
+            # (the Badger role, posting/mvcc.go:143 — datasets larger
+            # than RAM load and serve). See engine/lazy_tablets.py.
             from dgraph_tpu_torch.engine.lazy_tablets import (
                 TabletMap, TabletStore,
             )
@@ -1043,7 +1043,8 @@ class GraphDB:
                 pass  # stats are advisory; shutdown must not fail
             self._coststore_path = None
         if self.prefetcher is not None:
-            # stop the decode workers BEFORE the store closes
+            # stop the decode workers BEFORE the store closes: an
+            # in-flight worker reading a closed native handle is fatal
             self.prefetcher.close()
             self.prefetcher = None
         if self.tablet_store is not None:
@@ -1051,7 +1052,7 @@ class GraphDB:
             self.tablet_store.close()
             self.tablet_store = None
             # the TabletMap must not outlive its store (a lazy load on
-            # a closed store would read a closed WAL): degrade to a
+            # a closed native handle would be fatal): degrade to a
             # plain dict of whatever is resident — stored-only
             # predicates are no longer reachable after close
             self.tablets = {p: t for p, t in dict.items(self.tablets)}

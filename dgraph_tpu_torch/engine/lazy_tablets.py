@@ -4,8 +4,8 @@ The reference's posting lists materialize lazily from Badger and evict
 under memory pressure (posting/mvcc.go:143 ReadPostingList against
 disk, posting/lists.go LRU); without a store, every tablet stays
 resident in RAM. With GraphDB(store_dir=...), tablet base state lives
-in a key-value store (storage/kvfallback.PyKV) as one wire blob per
-predicate:
+in the host runtime's LSM store (csrc/native.cc: memtable + immutable
+sorted runs) as one wire blob per predicate:
 
   - a Tablet materializes on first access (TabletMap.get) and counts
     against a resident-bytes budget;
@@ -22,13 +22,14 @@ time (each load enters the LRU and can evict the previous one), so
 whole-store walks like backup, snapshot dump and `S * *` delete
 expansion stay correct AND memory-bounded.
 
-Port of `dgraph_tpu/engine/lazy_tablets.py`. The reference opens its
-native LSM store (`native.NativeKV`) whenever its C++ runtime builds and
-PyKV otherwise; the port has no native runtime and always takes the
-PyKV branch. A store materializes its tablets, their vector indexes
-included, on the engine's device (`TabletStore(directory, device)`);
-an offload drops the tablet's tiles from the engine's tile budget, and
-a reloaded tablet builds them afresh.
+Port of `dgraph_tpu/engine/lazy_tablets.py`. As in the reference, the
+store is `native.NativeKV`, and `storage/kvfallback.PyKV` (RAM-bound: a
+dict and a WAL) when the runtime is switched off; either package opens
+the other's store of the same kind. A store materializes its tablets,
+their vector indexes included, on the engine's device
+(`TabletStore(directory, device)`); an offload drops the tablet's tiles
+from the engine's tile budget, and a reloaded tablet builds them
+afresh.
 """
 
 from __future__ import annotations
@@ -45,14 +46,19 @@ _MAXTS_KEY = b"meta:max_ts"
 
 
 class TabletStore:
-    """One wire blob per predicate in a PyKV; tablets load onto
-    `device` (None: the card)."""
+    """One wire blob per predicate in the native LSM KV (PyKV when the
+    runtime is switched off — correctness-identical, RAM-bound);
+    tablets load onto `device` (None: the card)."""
 
     def __init__(self, directory: str, device=None):
+        from dgraph_tpu_torch import native
         from dgraph_tpu_torch.backend import resolve_device
-        from dgraph_tpu_torch.storage.kvfallback import PyKV
         self.device = resolve_device(device)
-        self.kv = PyKV(directory)
+        if native.available():
+            self.kv = native.NativeKV(directory)
+        else:
+            from dgraph_tpu_torch.storage.kvfallback import PyKV
+            self.kv = PyKV(directory)
 
     def preds(self) -> list[str]:
         out = []

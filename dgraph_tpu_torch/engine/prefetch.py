@@ -16,8 +16,9 @@ THREAD-SAFETY CONTRACT — narrow on purpose:
 
   - workers only ever call TabletStore.load for predicates whose
     schema is ALREADY KNOWN (schedule() filters), so a worker never
-    mutates SchemaState; the KV read is a dict probe (PyKV), and
-    restore_tablet builds a fresh object graph no other thread sees;
+    mutates SchemaState; the KV read is a dict probe (PyKV) or an
+    immutable-snapshot read (native LSM), and restore_tablet builds a
+    fresh object graph no other thread sees;
   - only the engine thread touches TabletMap; workers hand tablets
     over through Futures, and take() POPS the future so a result is
     consumed at most once;

@@ -16,11 +16,10 @@ Re-provides dgraph/cmd/bulk/ semantics with a vectorized reduce:
 Everything lands at a single fixed write_ts, exactly like the
 reference's fixed writeTs (bulk/loader.go getWriteTimestamp).
 
-Port of `dgraph_tpu/ingest/bulk.py`. The reference maps RDF through
-its native columnar parser whenever its C++ runtime builds and through
-the Python grammar otherwise; the port has no native runtime and always
-maps through the Python grammar, which the reference holds bit-identical
-to its native parser. Tablets are built on the engine's device
+Port of `dgraph_tpu/ingest/bulk.py`. RDF maps through the host
+runtime's columnar parser (`native.rdf_parse`), as in the reference;
+with the runtime switched off it maps through the Python grammar, which
+gives the same tablets. Tablets are built on the engine's device
 (`bulk_load(device=...)` for a fresh engine; None: the card).
 """
 
@@ -33,11 +32,13 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 
 from dgraph_tpu_torch.engine.db import GraphDB
-from dgraph_tpu_torch.gql.nquad import NQuad
+from dgraph_tpu_torch.gql.nquad import (
+    _XS_TYPES, _coerce, _unescape, NQuad, parse_facet_text, parse_rdf,
+)
 from dgraph_tpu_torch.ingest.chunker import _open, chunk_file, detect_format
 from dgraph_tpu_torch.ingest.xidmap import XidMap
 from dgraph_tpu_torch.models.schema import PredicateSchema
-from dgraph_tpu_torch.models.types import TypeID, convert
+from dgraph_tpu_torch.models.types import TypeID, Val, convert
 from dgraph_tpu_torch.storage.tablet import Posting, Tablet
 from dgraph_tpu_torch.wire import dumps as wire_dumps
 from dgraph_tpu_torch.wire import loads as wire_loads
@@ -72,9 +73,9 @@ def _posting_cost(p: Posting) -> int:
 
 class _MapShard:
     """Per-predicate mapper accumulator with disk spill.  Edge uids
-    arrive one at a time (python grammar path: `src`/`dst` lists);
-    `src_arrs`/`dst_arrs` hold whole arrays, which the reduce
-    concatenates with them."""
+    arrive either one at a time (python grammar path: `src`/`dst`
+    lists) or as whole per-chunk arrays from the native parser
+    (`src_arrs`/`dst_arrs`) — the reduce concatenates both."""
 
     def __init__(self, tmpdir: str, pred: str):
         self.pred = pred
@@ -205,11 +206,23 @@ def _bulk_load_locked(paths, nquads, db, tmpdir) -> GraphDB:
                 s.spill()
             pending_bytes = 0
 
+    from dgraph_tpu_torch import native as _native
     for p in paths:
-        for batch in chunk_file(p, detect_format(p)):
-            for nq in batch:
-                add_nq(nq)
-            maybe_spill()
+        fmt = detect_format(p)
+        if fmt == "rdf" and _native.available():
+            # columnar fast path: the native parser returns whole
+            # uid/literal row arrays per chunk; only lines outside its
+            # grammar go through the python parser (bit-identical —
+            # tested against parse_rdf on the same input)
+            for text in _raw_text_chunks(p):
+                pending_bytes += _map_native_chunk(
+                    text, shard, add_nq, bump_to)
+                maybe_spill()
+        else:
+            for batch in chunk_file(p, fmt):
+                for nq in batch:
+                    add_nq(nq)
+                maybe_spill()
     if nquads is not None:
         for batch in nquads:
             for nq in batch:
@@ -330,9 +343,13 @@ def bulk_shard_outputs(db: GraphDB, n_groups: int, outdir: str) -> dict:
     return manifest
 
 
+_NOID = (1 << 64) - 1  # native parser's "no lang/dtype" sentinel
+
+
 def _raw_text_chunks(path: str, chunk_bytes: int = 8 << 20):
     """Raw text blocks split at line boundaries (gzip transparent) —
-    distributed ingest's chunk unit."""
+    the native parser's input unit and distributed ingest's chunk
+    unit."""
     with _open(path) as f:
         while True:
             block = f.read(chunk_bytes)
@@ -340,6 +357,83 @@ def _raw_text_chunks(path: str, chunk_bytes: int = 8 << 20):
                 return
             tail = f.readline()
             yield block + (tail or "")
+
+
+def _map_native_chunk(text: str, shard, add_nq, bump_to) -> int:
+    """One text chunk through native.rdf_parse: edge rows land as
+    arrays grouped by predicate, literal rows build Postings directly,
+    fallback lines replay through the exact python grammar (ref
+    bulk/mapper.go:207 processNQuad, chunker/rdf_parser.go:58).
+    Returns the approximate PACKED BYTES buffered (the spill
+    accountant's unit; fallback lines self-count through add_nq)."""
+    from dgraph_tpu_torch import native
+
+    data = text.encode("utf-8")
+    parsed = native.rdf_parse(data)
+    if parsed is None:
+        for nq in parse_rdf(text):
+            add_nq(nq)
+        return 0
+    e_subj, e_pred, e_dst, e_fs, e_fl = parsed.edges
+    (v_subj, v_pred, v_ls, v_ll, v_flags,
+     v_lang, v_dtype, v_fs, v_fl) = parsed.vals
+    # uid high-water BEFORE any fallback blank-node lease is cut
+    hi = 0
+    if len(e_subj):
+        hi = max(int(e_subj.max()), int(e_dst.max()))
+    if len(v_subj):
+        hi = max(hi, int(v_subj.max()))
+    if hi:
+        bump_to(hi)
+    preds = parsed.preds
+    n = 0
+    if len(e_subj):
+        order = np.argsort(e_pred, kind="stable")
+        ep = e_pred[order]
+        bounds = np.nonzero(np.r_[True, ep[1:] != ep[:-1]])[0]
+        ends = np.r_[bounds[1:], len(ep)]
+        for b, e in zip(bounds.tolist(), ends.tolist()):
+            grp = order[b:e]
+            s = shard(preds[int(ep[b])])
+            s.src_arrs.append(e_subj[grp])
+            s.dst_arrs.append(e_dst[grp])
+        for i in np.nonzero(e_fl)[0].tolist():
+            fc = parse_facet_text(
+                data[int(e_fs[i]):int(e_fs[i] + e_fl[i])].decode())
+            if fc:  # `( )` parses empty; python's `if nq.facets` skips
+                shard(preds[int(e_pred[i])]).facets.append(
+                    (int(e_subj[i]), int(e_dst[i]), fc))
+        n += int(e_subj.nbytes) + int(e_dst.nbytes)
+    if len(v_subj):
+        langs, dtypes = parsed.langs, parsed.dtypes
+        for subj, pid, ls, ll, fl, lg, dt, fs, flen in zip(
+                v_subj.tolist(), v_pred.tolist(), v_ls.tolist(),
+                v_ll.tolist(), v_flags.tolist(), v_lang.tolist(),
+                v_dtype.tolist(), v_fs.tolist(), v_fl.tolist()):
+            sval = data[ls:ls + ll].decode("utf-8")
+            if fl & 1:
+                sval = _unescape(sval)
+            if dt != _NOID:
+                dtype = dtypes[dt]
+                tid = _XS_TYPES.get(
+                    dtype.split("#")[-1] if "#" in dtype else dtype)
+                val = _coerce(sval,
+                              TypeID.STRING if tid is None else tid)
+            else:
+                val = Val(TypeID.DEFAULT, sval)
+            facets = parse_facet_text(
+                data[fs:fs + flen].decode("utf-8")) if flen else {}
+            p = Posting(val, langs[lg] if lg != _NOID else "", facets)
+            shard(preds[pid]).vals.append((subj, p))
+            n += _posting_cost(p)
+    fb_s, fb_l = parsed.fallback
+    if len(fb_s):
+        txt = "\n".join(
+            data[int(a):int(a + b)].decode("utf-8")
+            for a, b in zip(fb_s.tolist(), fb_l.tolist()))
+        for nq in parse_rdf(txt):
+            add_nq(nq)
+    return n
 
 
 def _resolve(xidmap: XidMap, ref: str) -> int:

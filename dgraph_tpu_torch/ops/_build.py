@@ -1,11 +1,16 @@
-"""Build a CUDA source of `csrc/` into a shared library and load it with
+"""Build a source of `csrc/` into a shared library and load it with
 ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface, so `nvcc` builds it
-in seconds without PyTorch's headers. The library lands in
+in seconds without PyTorch's headers. `csrc/native.cc`, the host
+runtime (`dgraph_tpu_torch.native`), is C++ that `g++` builds with the
+reference Makefile's flags. The library lands in
 `build/dgraph_tpu_torch/` at the root of the checkout, named by a hash
 of the source and the flags so an edited source is never served from a
-stale build. Building happens at first use, never at import.
+stale build; it is written under a per-process temporary name and
+renamed into place, so processes building at once never load a partial
+file. Building happens at first use, never at import, and a failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "dgraph_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the reference's native/Makefile (CXXFLAGS and -shared)
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -44,10 +51,30 @@ def nvcc_path() -> str:
                        "build the port's kernels")
 
 
+def gxx_path() -> str:
+    """g++ from PATH."""
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: a C++ compiler is needed to build "
+                       "the port's host runtime (csrc/native.cc)")
+
+
+def source_path(name: str) -> Path:
+    """`csrc/<name>.cu`, else `csrc/<name>.cc`."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cc"
+
+
+def _flags(src: Path) -> tuple[str, ...]:
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+
+
 def library_path(name: str) -> Path:
-    """Where the build of `csrc/<name>.cu` lives for its current text."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the build of `csrc/<name>` lives for its current text."""
+    src = source_path(name)
+    tag = hashlib.sha256(
+        src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 
@@ -56,10 +83,18 @@ def nvcc_command(name: str, out: Path) -> list[str]:
             str(CSRC_DIR / f"{name}.cu")]
 
 
+def compile_command(name: str, out: Path) -> list[str]:
+    """nvcc for a CUDA source, g++ for a C++ one."""
+    src = source_path(name)
+    if src.suffix == ".cu":
+        return nvcc_command(name, out)
+    return [gxx_path(), *GXX_FLAGS, "-o", str(out), str(src)]
+
+
 def _finish(name: str, proc: subprocess.Popen, tmp: Path,
             path: Path) -> None:
-    """Wait for one nvcc, record its output, and move its library into
-    place; raise if it failed."""
+    """Wait for one compiler, record its output, and move its library
+    into place; raise if it failed."""
     try:
         out, _ = proc.communicate(timeout=600)
     except subprocess.TimeoutExpired:
@@ -67,14 +102,16 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path,
         proc.communicate()
         raise
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
+        src = source_path(name)
+        tool = "nvcc" if src.suffix == ".cu" else "g++"
+        raise RuntimeError(f"{tool} failed on csrc/{src.name}:\n{out}")
     build_logs[name] = out
     os.replace(tmp, path)
 
 
 def build_all(names: list[str]) -> None:
-    """Build every named source that has no current library, one nvcc
-    each, all started together, and wait for all of them."""
+    """Build every named source that has no current library, one
+    compiler each, all started together, and wait for all of them."""
     with _lock:
         running = []
         try:
@@ -84,7 +121,7 @@ def build_all(names: list[str]) -> None:
                     continue
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = path.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.Popen(nvcc_command(name, tmp),
+                proc = subprocess.Popen(compile_command(name, tmp),
                                         stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
                 running.append((name, proc, tmp, path))
@@ -98,7 +135,7 @@ def build_all(names: list[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>`, built first if needed."""
     # the launch path: a loaded library is served without hashing its
     # source again (a dict read is atomic under the interpreter lock)
     lib = _loaded.get(name)

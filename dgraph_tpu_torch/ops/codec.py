@@ -18,10 +18,11 @@ Two planes:
   `ops/setops.intersect_packs` is the only part that runs on the card.
   `compressed_pack_from_arrays` carries a reference pack across.
 
-The group-varint at-rest stream keeps the reference's numpy encoders
-and decoder (`gv_encode_np`, `_gv_encode_py_small`, `gv_decode_np`),
-byte-identical to its native stream; the native library is not part of
-the port.
+The group-varint at-rest stream goes through the host runtime
+(`dgraph_tpu_torch.native`, dgt_gv_encode / dgt_gv_decode), as the
+reference's does; the reference's numpy encoders and decoder
+(`gv_encode_np`, `_gv_encode_py_small`, `gv_decode_np`) write and read
+the same bytes and run when the runtime is switched off.
 """
 
 from __future__ import annotations
@@ -687,10 +688,13 @@ def _gv_encode_py_small(a) -> bytes:
 
 
 def gv_encode(uids: np.ndarray) -> bytes:
-    """Group-varint delta stream, byte-identical to the reference's
-    `gv_encode` (its native dgt_gv_encode and its numpy fallback write
-    the same bytes): scalar for short lists, below the numpy path's
-    fixed-overhead crossover, numpy otherwise."""
+    """Group-varint delta stream: native dgt_gv_encode, or with the
+    runtime switched off the byte-identical scalar path for short lists
+    (below the numpy path's fixed-overhead crossover) and numpy
+    otherwise."""
+    from dgraph_tpu_torch import native
+    if native.available():
+        return native.gv_encode(np.asarray(uids, np.uint64))
     if len(uids) < 48:
         return _gv_encode_py_small(uids)
     return gv_encode_np(uids)
@@ -723,8 +727,12 @@ def _gv_decode_py_small(buf: bytes) -> np.ndarray:
 
 
 def gv_decode(buf: bytes) -> np.ndarray:
-    """Decoder for the `gv_encode` stream: scalar for short streams, as
-    the encoder, numpy otherwise."""
+    """Decoder for the `gv_encode` stream: native dgt_gv_decode, or
+    with the runtime switched off scalar for short streams, as the
+    encoder, numpy otherwise."""
+    from dgraph_tpu_torch import native
+    if native.available():
+        return native.gv_decode(buf)
     if len(buf) >= 8 and int.from_bytes(buf[:8], "little") < 48:
         return _gv_decode_py_small(buf)
     return gv_decode_np(buf)

@@ -49,6 +49,11 @@ from dgraph_tpu_torch.utils.tracing import span as _span
 _EMPTY = np.empty(0, dtype=np.uint64)
 _MISS_CV = object()  # _colview memo sentinel (None is a valid verdict)
 
+# value types the columnar JSON fast path serializes (DATETIME via its
+# isoformat string); GEO/BINARY/PASSWORD keep the general emitter
+_FLAT_TYPES = {TypeID.INT, TypeID.FLOAT, TypeID.BOOL, TypeID.STRING,
+               TypeID.DEFAULT, TypeID.DATETIME}
+
 # value variable a similar_to() root/filter binds its per-uid scores
 # to, readable as val(similar_to_score) (see _eval_similar_to)
 SIMILAR_SCORE_VAR = "similar_to_score"
@@ -77,6 +82,131 @@ def _col_positions(srcs: np.ndarray, uids: np.ndarray):
     hit = (srcs[pos] == uids) if n else \
         np.zeros(len(uids), bool)
     return pos, hit
+
+
+def _flat_column_vectorized(ex, ch, name: str, colview, n: int):
+    """Pure-numpy column build over a clean tablet's columnar view —
+    no per-row Python at all for numeric columns; strings pay one
+    list-gather of pre-encoded payloads."""
+    from dgraph_tpu_torch import native as _native
+
+    srcs, tid, data, enc = colview
+    uids = ex._flat_uids
+    pos, hit = _col_positions(srcs, uids)
+    present = hit.astype(np.uint8)
+    if tid == TypeID.INT:
+        out = np.zeros(n, np.int64)
+        out[hit] = data[pos[hit]]
+        return (name, _native.JCOL_INT, out, None, present)
+    if tid == TypeID.FLOAT:
+        out = np.zeros(n, np.float64)
+        out[hit] = data[pos[hit]]
+        return (name, _native.JCOL_FLOAT, out, None, present)
+    if tid == TypeID.BOOL:
+        out = np.zeros(n, np.uint8)
+        out[hit] = data[pos[hit]]
+        return (name, _native.JCOL_BOOL, out, None, present)
+    # strings (STRING/DEFAULT/DATETIME pre-encoded at cache build)
+    sel = [enc[j] for j in pos[hit].tolist()]
+    lens = np.zeros(n, np.int64)
+    lens[hit] = [len(e) for e in sel]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    blob = b"".join(sel)
+    bdata = np.frombuffer(blob, np.uint8) if blob \
+        else np.zeros(1, np.uint8)
+    return (name, _native.JCOL_STR, bdata, offs, present)
+
+
+def _flat_column(ex, ch, name: str, ulist: list, n: int):
+    """Extract one scalar child's values into a typed column for
+    native.json_rows. One pass selects each uid's first untagged
+    posting (exactly _select_posting(ps, [])); the conversion is then
+    BULK per column — mutations convert values to the schema type at
+    stage time, so a typed tablet's stored tids are uniform and the
+    per-cell _typed/to_json_value dispatch the dict path pays is
+    skipped. Returns None when values are not uniformly one
+    JSON-scalar type (mixed DEFAULT columns bail to the dict path)."""
+    from dgraph_tpu_torch import native as _native
+
+    colview = ex._colview(ch.tablet)
+    if colview is not None:
+        col = _flat_column_vectorized(ex, ch, name, colview, n)
+        if col is not None:
+            return col
+    ex._ensure_child_values(ch)
+    vmap = ch.values
+    present = np.zeros(n, np.uint8)
+    idxs: list[int] = []
+    sels: list = []
+    get = vmap.get
+    for i, u in enumerate(ulist):
+        ps = get(u)
+        if not ps:
+            continue
+        p0 = ps[0]
+        if not p0.lang:
+            present[i] = 1
+            idxs.append(i)
+            sels.append(p0.value)
+        else:
+            for p in ps[1:]:
+                if not p.lang:
+                    present[i] = 1
+                    idxs.append(i)
+                    sels.append(p.value)
+                    break
+    if not sels:
+        return (name, _native.JCOL_INT, np.zeros(n, np.int64), None,
+                present)
+    tid = sels[0].tid
+    if any(v.tid is not tid for v in sels):
+        return None
+    stype = ch.tablet.schema.value_type
+    if stype != TypeID.DEFAULT and tid != stype:
+        # stored tid predates a schema change: the dict path would
+        # convert per cell (_typed), so the bulk path must not skip it
+        return None
+    if tid == TypeID.BOOL:
+        data = np.zeros(n, np.uint8)
+        data[idxs] = [1 if v.value else 0 for v in sels]
+        return (name, _native.JCOL_BOOL, data, None, present)
+    if tid == TypeID.INT:
+        data = np.zeros(n, np.int64)
+        try:
+            data[idxs] = [v.value for v in sels]
+        except (OverflowError, TypeError, ValueError):
+            return None
+        return (name, _native.JCOL_INT, data, None, present)
+    if tid == TypeID.FLOAT:
+        data = np.zeros(n, np.float64)
+        try:
+            data[idxs] = [v.value for v in sels]
+        except (TypeError, ValueError):
+            return None
+        return (name, _native.JCOL_FLOAT, data, None, present)
+    if tid in (TypeID.STRING, TypeID.DEFAULT, TypeID.DATETIME):
+        try:
+            if tid == TypeID.DATETIME:
+                from dgraph_tpu_torch.models.types import iso8601
+                enc = [iso8601(v.value).encode("utf-8")
+                       for v in sels]
+            else:
+                enc = [v.value.encode("utf-8") for v in sels]
+        except (AttributeError, ValueError):
+            # non-str payload in a DEFAULT column, or a lone-surrogate
+            # string utf-8 refuses (UnicodeEncodeError is a
+            # ValueError): keep the exact dict path
+            return None
+        lens = np.zeros(n, np.int64)
+        lens[idxs] = [len(e) for e in enc]
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        blob = b"".join(enc)
+        data = np.frombuffer(blob, np.uint8) if blob \
+            else np.zeros(1, np.uint8)
+        return (name, _native.JCOL_STR, data, offs, present)
+    return None
 
 
 def _lang_matches(posting_lang: str, query_lang: str) -> bool:
@@ -388,11 +518,12 @@ class Executor:
         return out
 
     def emit_json(self, done) -> str:
-        """Emit the data payload as a JSON string: dict building +
-        json.dumps per block. The reference's columnar row serializer
-        is a native C++ fast path; the port takes the reference's
-        branch for a build without it. Output is byte-identical to
-        json.dumps(self.emit(done)) with compact separators."""
+        """Emit the data payload as a JSON string: flat uid+scalar
+        blocks go through the native columnar row serializer
+        (native.json_rows — ref query/outputnode.go fastJsonNode);
+        everything else falls back to dict building + json.dumps.
+        Output is byte-identical to json.dumps(self.emit(done)) with
+        compact separators."""
         import json as _json
 
         payloads: dict[str, str] = {}
@@ -403,12 +534,97 @@ class Executor:
                 payloads["_path_"] = _json.dumps(
                     self._emit_paths(node), separators=(",", ":"))
                 continue
-            val = self._emit_block(node)
-            if gq.is_groupby and not val:
-                continue  # empty root groupby omits its key
-            payloads[gq.alias] = _json.dumps(val, separators=(",", ":"))
+            fast = self._emit_block_flat_json(node)
+            if fast is None:
+                val = self._emit_block(node)
+                if gq.is_groupby and not val:
+                    continue  # empty root groupby omits its key
+                fast = _json.dumps(val, separators=(",", ":"))
+            payloads[gq.alias] = fast
         return "{" + ",".join(
             _json.dumps(k) + ":" + v for k, v in payloads.items()) + "}"
+
+    def _emit_block_flat_json(self, node: ExecNode) -> Optional[str]:
+        """Columnar fast path for the overwhelmingly common result
+        shape: a uid block whose children are plain scalar predicates
+        (plus optional `uid`). Returns the serialized JSON array, or
+        None when any feature needs the general emitter."""
+        from dgraph_tpu_torch import native as _native
+
+        gq = node.gq
+        if not node.children or node.emit_order is not None:
+            # emit_order (path vars, similar_to score order) reorders
+            # rows; the columnar emitter walks dest uid-ascending
+            return None
+
+        def eligible() -> Optional[list]:
+            """Spec derivation is structure+schema-pure, so a warm
+            plan binds it once per (skeleton, schema epoch): either
+            None (this block shape keeps the general emitter — a
+            predicate created on the fly after compile re-decides at
+            the next epoch-keyed plan, costing only the fast path) or
+            the (child index | uid marker, name) column list."""
+            if (gq.recurse is not None or gq.is_groupby or gq.normalize
+                    or gq.cascade or gq.ignore_reflex):
+                return None
+            sp = []  # (child idx, name); idx None marks the uid col
+            for ci, ch in enumerate(node.children):
+                cgq = ch.gq
+                name = cgq.alias or cgq.attr
+                if not all(32 <= ord(c) < 127 and c not in '"\\'
+                           for c in name):
+                    # the native emitter writes keys verbatim; names
+                    # that need escaping (quotes, non-ASCII — legal in
+                    # <iri> attrs and unicode identifiers) keep the
+                    # dict path
+                    return None
+                if cgq.attr == "uid" and not cgq.is_count:
+                    sp.append((None, "uid"))
+                    continue
+                tab = ch.tablet
+                if (tab is None or cgq.is_count or cgq.agg_func
+                        or cgq.attr == "math"
+                        or cgq.attr.startswith("val(")
+                        or cgq.langs or cgq.facets is not None
+                        or cgq.facet_var or cgq.cascade or cgq.children
+                        or ch.reverse or tab.schema.list_
+                        or tab.schema.value_type not in _FLAT_TYPES):
+                    return None
+                sp.append((ci, name))
+            return sp or None
+
+        if self.plan is not None and node.block_idx >= 0 \
+                and not any(c.expand for c in gq.children):
+            # expand() resolves children from DATA (the src uids'
+            # types), so its child list is not skeleton-stable: those
+            # blocks re-derive per request
+            idx_specs = self.plan.memo(
+                ("flatspec", node.block_idx), eligible)
+        else:
+            idx_specs = eligible()
+        if idx_specs is None:
+            return None
+        uids = node.dest
+        n = len(uids)
+        specs = [(None if ci is None else node.children[ci], name)
+                 for ci, name in idx_specs]
+        cols = []
+        self._flat_uids = uids.astype(np.uint64)
+        ulist = uids.tolist()
+        for ch, name in specs:
+            if ch is None:
+                cols.append((name, _native.JCOL_UID,
+                             uids.astype(np.uint64), None, None))
+                continue
+            col = _flat_column(self, ch, name, ulist, n)
+            if col is None:
+                return None
+            cols.append(col)
+        out = _native.json_rows(n, cols)
+        if out is None:
+            return None
+        inc_counter("query_flat_json_total")
+        return out.decode("utf-8")
 
     def _all_needs(self, gq: GraphQuery):
         yield from gq.needs_var
@@ -870,7 +1086,11 @@ class Executor:
                    if len(b)]
         if not buckets:
             return _EMPTY
-        return setops.count_filter(buckets, need)
+        from dgraph_tpu_torch import native as _nat
+        got = _nat.merge_count(buckets, need) if _nat.available() \
+            else None
+        return got if got is not None \
+            else setops.count_filter(buckets, need)
 
     # np.unique cost per element of a k-way union — the fixed side of
     # the device-tier choice is the measured dispatch RTT
@@ -2233,16 +2453,53 @@ class Executor:
 
     def _match_batch_inner(self, tab, scan, want: str,
                            maxd: int) -> Optional[np.ndarray]:
-        """Verify all candidates in one batch over the columnar string
-        view instead of a per-uid get_postings round. The reference's
-        batch is a native C++ loop; the port takes the reference's
-        branch for a build without it (_match_batch_np)."""
+        """Verify all candidates in ONE native call over the columnar
+        string view (C loop + banded Levenshtein) instead of a per-uid
+        get_postings round — 21M-regime q015 spends ~45s in the Python
+        loop otherwise. Lang-tagged postings (absent from the untagged
+        column) re-verify on the exact host path, so tagged-only and
+        mixed uids match identically to _match_scan."""
+        from dgraph_tpu_torch import native as _native
+
         colview = self._colview(tab)
         if colview is None or colview.enc is None \
                 or colview.tid not in (TypeID.STRING, TypeID.DEFAULT) \
                 or not colview.extra_ok:
             return None
-        return self._match_batch_np(colview, scan, want, maxd)
+        if not _native.available():
+            return self._match_batch_np(colview, scan, want, maxd)
+        srcs, _tid, _data, enc = colview
+
+        def masked(cand_srcs, payloads):
+            offs = np.zeros(len(payloads) + 1, np.int64)
+            np.cumsum([len(e) for e in payloads], out=offs[1:])
+            blob = np.frombuffer(b"".join(payloads), np.uint8) \
+                if payloads else np.zeros(1, np.uint8)
+            m = _native.match_mask(want.encode("utf-8"), maxd, blob,
+                                   offs)
+            return None if m is None else cand_srcs[m == 1]
+
+        pos, hit = _col_positions(srcs, scan)
+        sel = pos[hit]
+        blob, boffs = colview.payload_blob()
+        m = _native.match_mask_idx(want.encode("utf-8"), maxd,
+                                   blob, boffs, sel)
+        if m is None:
+            return None
+        got = scan[hit][m == 1]
+        keep = [got]
+        if len(colview.extra_srcs):
+            # lang-tagged payloads of candidate uids, same batch call
+            em = np.isin(colview.extra_srcs, scan)
+            egot = masked(colview.extra_srcs[em],
+                          [colview.extra_enc[j]
+                           for j in np.nonzero(em)[0].tolist()])
+            if egot is None:
+                return None
+            keep.append(egot)
+        inc_counter("query_match_batch_total")
+        out = np.unique(np.concatenate(keep))
+        return out
 
     def _match_batch_np(self, colview, scan, want: str,
                         maxd: int) -> Optional[np.ndarray]:
@@ -6293,7 +6550,12 @@ def _apply_math(fn: str, v: list, _m):
 
 
 def _levenshtein(a: str, b: str, cap: int) -> int:
-    """Banded edit distance (ref worker/match.go levenshtein)."""
+    """Banded edit distance (ref worker/match.go levenshtein).
+    Dispatches to the host runtime (csrc/native.cc dgt_levenshtein)
+    unless it is switched off."""
+    from dgraph_tpu_torch import native
+    if native.available():
+        return native.levenshtein(a, b, cap)
     if abs(len(a) - len(b)) > cap:
         return cap + 1
     prev = list(range(len(b) + 1))

@@ -4,12 +4,12 @@ wire-encoded (dgraph_tpu_torch.wire) so a store written here stays
 readable by any build; pre-wire pickle payloads are replayed once via
 wire.loads_compat (the migration shim).
 
-Port of `dgraph_tpu/storage/kvfallback.py`, the reference's stand-in
-for its native LSM store (`native.NativeKV`) when the C++ runtime does
-not build. The port has no native runtime, so every store-backed
-engine of the port uses this store; its `SNAPSHOT.py` and `WAL` files
-are byte-for-byte those the reference writes in the same case, and a
-store written by either package opens in the other."""
+Port of `dgraph_tpu/storage/kvfallback.py`, the stand-in for the LSM
+store (`native.NativeKV`) that a store-backed engine uses when the host
+runtime is switched off. Its `SNAPSHOT.py` and `WAL` files are
+byte-for-byte those the reference writes in the same case, and a store
+written by either package opens in the other. It does not open a
+`NativeKV` directory, nor does the reference's."""
 
 from __future__ import annotations
 

@@ -1,16 +1,16 @@
 """Write-ahead log: durability for committed transactions.
 
 The reference persists every mutation through Badger's value log + Raft
-WAL (raftwal/storage.go over Badger). Records are wire-encoded engine
-commit tuples, framed with a CRC and truncated at a torn tail.
+WAL (raftwal/storage.go over Badger). Here the framing, CRC validation,
+torn-tail truncation, and fsync policy live in the host runtime
+(csrc/native.cc dgt_wal_*, bound via dgraph_tpu_torch.native.NativeWal);
+records are wire-encoded engine commit tuples. A pure-Python framer
+writes the same format and runs when the runtime is switched off.
 Snapshotting truncates the log (ref worker/draft.go:1206
 calculateSnapshot).
 
-Port of `dgraph_tpu/storage/wal.py`. The reference frames through its
-native C++ runtime when that builds and through a pure-Python framer
-otherwise; the two write the same file format. The port has only the
-Python framer, so a log written by either backend of the reference
-replays here, and the other way round.
+Port of `dgraph_tpu/storage/wal.py`: a log written by either backend of
+either package replays in the other.
 """
 
 from __future__ import annotations
@@ -19,8 +19,11 @@ import os
 import struct
 from typing import Any, Iterator
 
-# Same on-disk format as the reference's native/native.cc (kWalMagic /
-# frame = u32 len | u32 crc32 | payload).
+from dgraph_tpu_torch import native
+
+# Same on-disk format as csrc/native.cc (kWalMagic / frame = u32 len |
+# u32 crc32 | payload): the two backends are interchangeable on the same
+# file.
 _MAGIC = b"DGTWAL2\x00"
 _LEGACY_MAGIC = b"DGTWAL1\x00"
 
@@ -135,16 +138,21 @@ def _decode_record(blob: bytes) -> Any:
 
 
 class Wal:
-    """Record log for engine commits. With `key`, every record blob is
-    AES-GCM sealed before framing (encryption at rest, storage/enc.py;
-    ref ee/enc)."""
+    """Record log for engine commits; native-backed unless the runtime
+    is switched off. With `key`, every record blob is AES-GCM sealed
+    before framing (encryption at rest, storage/enc.py; ref ee/enc)."""
 
     def __init__(self, path: str, sync: bool = False,
                  key: bytes | None = None):
         self.path = path
         self.sync = sync
         self.key = key
-        self._w = _PyWal(path, sync)
+        if native.available():
+            self._w = native.NativeWal(path, sync)
+            self.native = True
+        else:
+            self._w = _PyWal(path, sync)
+            self.native = False
 
     def append(self, record: Any):
         from dgraph_tpu_torch.storage.enc import encrypt_blob
@@ -157,7 +165,19 @@ class Wal:
             failpoint.fire("wal.append")
             blob = encrypt_blob(dumps(record), self.key)
             sp["bytes"] = len(blob)
-            self._w.append(blob)
+            if self.native and self.sync:
+                # the native backend fsyncs inside dgt_wal_append —
+                # time the whole durable append (fsync dominates it)
+                # so the stall histogram covers both backends
+                import time
+
+                from dgraph_tpu_torch.utils import metrics
+                t0 = time.perf_counter()
+                self._w.append(blob)
+                metrics.observe("dgraph_wal_fsync_seconds",
+                                time.perf_counter() - t0)
+            else:
+                self._w.append(blob)
 
     def replay(self) -> Iterator[Any]:
         from dgraph_tpu_torch.storage.enc import decrypt_blob

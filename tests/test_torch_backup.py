@@ -4,8 +4,9 @@ CPU.
 
 The reference's tests/test_backup.py (9 tests) and tests/test_pitr.py
 run through both packages as tests/test_torch_cold_storage.py's
-`run_in_both` runs them: each pass in its own directory, and each with
-its own fake S3 endpoint (the reference's, copied here), whose objects
+`run_in_both` runs them, with the host runtime off in both packages
+and, in the `_native_on` tests, on in both: each pass in its own
+directory, and each with its own fake S3 endpoint (the reference's, copied here), whose objects
 must be equal afterwards as the files are: backup artifacts by their
 gzip contents, manifests apart from `unix_ts`, encrypted artifacts by
 length. `test_cli_restore_to_ts` drives the command line, which is not
@@ -28,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-import dgraph_tpu.native
 from dgraph_tpu.engine.db import GraphDB as JDB
 from dgraph_tpu.storage import backup as jbk
 from dgraph_tpu_torch import wire as twire
@@ -36,7 +36,9 @@ from dgraph_tpu_torch.engine.db import GraphDB as TDB
 from dgraph_tpu_torch.ops import ivf as tivf
 from dgraph_tpu_torch.storage import backup as tbk
 from dgraph_tpu_torch.storage import snapshot as tsnap
-from tests.test_torch_cold_storage import _tree, reference_cases, run_in_both
+from tests.test_torch_cold_storage import (
+    _tree, reference_cases, run_in_both, switch_native,
+)
 
 ENCRYPTED = ("test_encrypted_backup_requires_key", "test_minio_encrypted_chain",
              "test_encrypted_wal_roundtrip")
@@ -118,8 +120,7 @@ def test_the_reference_files_hold_their_cases():
                     "test_pitr_coverage_error_when_ring_evicted"]
 
 
-@pytest.mark.parametrize("name", BACKUP)
-def test_backup_through_both(name, tmp_path):
+def backup_through_both(name, tmp_path, native):
     encrypted = name in ENCRYPTED
     opaque = ("wal",) if encrypted else ()
     if encrypted:
@@ -127,12 +128,28 @@ def test_backup_through_both(name, tmp_path):
         opaque += tuple(f"backup-0-{ts}.gz" for ts in range(1, 64))
     run_in_both("test_backup", name, tmp_path, opaque=opaque,
                 fixtures={"fake_s3": fake_s3},
-                collect=lambda args: _objects(args, encrypted))
+                collect=lambda args: _objects(args, encrypted),
+                native=native)
+
+
+@pytest.mark.parametrize("name", BACKUP)
+def test_backup_through_both(name, tmp_path):
+    backup_through_both(name, tmp_path, native=False)
 
 
 @pytest.mark.parametrize("name", PITR)
 def test_pitr_through_both(name, tmp_path):
     run_in_both("test_pitr", name, tmp_path)
+
+
+@pytest.mark.parametrize("name", BACKUP)
+def test_backup_through_both_native_on(name, tmp_path):
+    backup_through_both(name, tmp_path, native=True)
+
+
+@pytest.mark.parametrize("name", PITR)
+def test_pitr_through_both_native_on(name, tmp_path):
+    run_in_both("test_pitr", name, tmp_path, native=True)
 
 
 # -- a vector tablet through the store and a backup --------------------------
@@ -164,7 +181,20 @@ def _engine(G, store, **kw):
 
 
 def test_vector_index_round_trip(tmp_path, monkeypatch):
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    """The host runtime off in both packages (PyKV stores)."""
+    switch_native(monkeypatch, False)
+    vector_index_round_trip(tmp_path, monkeypatch)
+
+
+def test_vector_index_round_trip_native_on(tmp_path, monkeypatch):
+    """The runtime on in both (NativeKV stores; like the reference's,
+    the port's NativeKV makes its own directory but not its parents)."""
+    for side in ("ref", "port"):
+        (tmp_path / side).mkdir()
+    vector_index_round_trip(tmp_path, monkeypatch)
+
+
+def vector_index_round_trip(tmp_path, monkeypatch):
     vecs, queries = _vectors()
     answers = {}
     for side, G, bk, kw in (("ref", JDB, jbk, {}),
@@ -208,7 +238,7 @@ def test_chain_restore_keeps_the_trained_index(tmp_path, monkeypatch):
     source's, the quantized tier answers as the source's without
     training), where the reference's second entry re-alters the schema
     and drops it (a decided difference, storage/backup.py)."""
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    switch_native(monkeypatch, False)
     vecs, queries = _vectors()
     got = {}
     for side, G, bk, kw in (("ref", JDB, jbk, {}),

@@ -4,10 +4,10 @@ deployment carries over instead of weights.
 - Raft logs: a `DiskStorage` directory (hardstate, entries, snapshot)
   written by either package holds the same files and opens in the
   other, and a group restarted from the other package's directories
-  replays the same log. The reference writes with its native runtime
-  off (`dgraph_tpu.native.available` False), the branch the port always
-  takes (`storage/kvfallback.PyKV`). The records' wire bytes are held in
-  test_torch_wire.
+  replays the same log. Both packages write with the host runtime off
+  (`native.available` False: `storage/kvfallback.PyKV`) and, in the
+  `_native_on` test, on (`native.NativeKV`, the default). The records'
+  wire bytes are held in test_torch_wire.
 - Snapshots: the same writes give the same `save_snapshot` bytes and the
   same raft snapshot (`dump_state`) bytes in both packages, and a file
   either package wrote bulk-boots the other's cluster `AlphaServer`
@@ -19,9 +19,6 @@ from __future__ import annotations
 import time
 from pathlib import Path
 
-import pytest
-
-import dgraph_tpu.native
 from dgraph_tpu import wire as jwire
 from dgraph_tpu.bench.spawn import free_ports
 from dgraph_tpu.cluster import harness as jharness
@@ -35,6 +32,7 @@ from dgraph_tpu_torch.cluster import raft as traft
 from dgraph_tpu_torch.cluster import service as tservice
 from dgraph_tpu_torch.engine.db import GraphDB as TDB
 from dgraph_tpu_torch.storage import snapshot as tsnap
+from tests.test_torch_cold_storage import switch_native
 
 PKGS = {"ref": (jraft, jharness, jservice, JDB, jsnap, jwire),
         "port": (traft, tharness, tservice, TDB, tsnap, twire)}
@@ -44,11 +42,6 @@ RDF = "\n".join([f'<{i:#x}> <name> "n{i}" .' for i in range(1, 41)]
                    for i in range(1, 41)])
 QUERY = ('{ q(func: eq(name, "n7")) { name friend { name ~friend '
          '{ name } } } }')
-
-
-@pytest.fixture(autouse=True)
-def _reference_without_native(monkeypatch):
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
 
 
 def _files(d: Path) -> dict:
@@ -160,9 +153,19 @@ def _snapshot_boots_the_other_packages_alpha(writer, reader, tmp_path):
     assert got["q"][0]["friend"][0]["name"] == "n8"
 
 
-def test_cluster_state_across_packages(tmp_path):
+def test_cluster_state_across_packages(tmp_path, monkeypatch):
     """Each check above, both ways where it has two (one test item: see
-    `torch_twins.run_each`)."""
+    `torch_twins.run_each`), the host runtime off in both packages."""
+    switch_native(monkeypatch, False)
+    cluster_state_across_packages(tmp_path)
+
+
+def test_cluster_state_across_packages_native_on(tmp_path):
+    """The same with the runtime on in both (NativeKV raft logs)."""
+    cluster_state_across_packages(tmp_path)
+
+
+def cluster_state_across_packages(tmp_path):
     def fresh(name):
         d = tmp_path / name
         d.mkdir()

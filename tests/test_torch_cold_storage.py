@@ -5,11 +5,12 @@ result_cache_entries and checkpoint) against the reference's, on the
 CPU.
 
 The reference's own tests run through both packages
-(`run_in_both`): once as they are, with the reference's native
-runtime switched off (`dgraph_tpu.native.available` patched to False,
-so its store is the PyKV the port always uses), and once with every
-name they take from `dgraph_tpu` rebound to the port's counterpart
-(engines and entry points on `device="cpu"`). Each pass works in its
+(`run_in_both`): once as they are, and once with every name they take
+from `dgraph_tpu` rebound to the port's counterpart (engines and entry
+points on `device="cpu"`), each case with the host runtime switched off
+in both packages (`native.available` patched to False, so the store is
+PyKV) and, in the `_native_on` tests, on in both (the store is
+NativeKV, the default of either package). Each pass works in its
 own directory; afterwards the two directories must hold the same
 files with the same bytes (gzip members compared by their contents,
 manifests apart from their wall-clock stamps, encrypted blobs by
@@ -20,9 +21,8 @@ own runtime witness armed, and a witnessed race fails it
 (`torch_twins.witnessed`).
 
 The reference's two NativeKV tests (`test_checkpoint_compacts_store`,
-`test_lsm_compaction_crash_window_no_resurrection`) test its native LSM
-store, which the port does not have; their PyKV counterparts run here
-on both packages instead.
+`test_lsm_compaction_crash_window_no_resurrection`) run with the
+runtime on only; their PyKV counterparts run here on both packages.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import pytest
 import torch
 
 import dgraph_tpu.native
+import dgraph_tpu_torch.native
 from dgraph_tpu import wire as jwire
 from dgraph_tpu.engine import lazy_tablets as jlazy
 from dgraph_tpu.engine.db import GraphDB as JDB
@@ -59,7 +60,7 @@ from dgraph_tpu_torch.storage import uri as turi
 from dgraph_tpu_torch.storage.wal import _PyWal
 from dgraph_tpu_torch.utils import metrics as tmetrics
 from tests.torch_twins import (
-    CpuGraphDB, bind_port, witness_marks, witnessed,
+    CpuGraphDB, PortModule, bind_port, witness_marks, witnessed,
 )
 
 # counters both passes of a reference test must move alike
@@ -147,12 +148,19 @@ def _order(dumps) -> list:
     return sorted(dumps.items()) if dumps else []
 
 
+def switch_native(mp, on: bool) -> None:
+    """The host runtime on (the default) or off in both packages."""
+    if not on:
+        mp.setattr(dgraph_tpu.native, "available", lambda: False)
+        mp.setattr(dgraph_tpu_torch.native, "available", lambda: False)
+
+
 def run_in_both(ref_name, test_name, tmp_path, params=None,
                 compare_files=True, opaque=(), fixtures=None, collect=None,
-                dumps=True):
-    """Run `tests.<ref_name>.<test_name>` on the reference (native off)
-    and on the port, each in its own directory; then hold their files
-    and counters equal. `opaque` names files compared by length only
+                dumps=True, native=False):
+    """Run `tests.<ref_name>.<test_name>` on the reference and on the
+    port, each in its own directory, with the host runtime on or off in
+    both (`native`); then hold their files and counters equal. `opaque` names files compared by length only
     (encrypted with a random nonce). `fixtures` replaces the reference
     module's fixtures by name; `collect(args)`, given the test's
     resolved arguments after each pass, returns what must be equal
@@ -166,7 +174,7 @@ def run_in_both(ref_name, test_name, tmp_path, params=None,
         where.mkdir()
         mp = pytest.MonkeyPatch()
         try:
-            mp.setattr(dgraph_tpu.native, "available", lambda: False)
+            switch_native(mp, native)
             metrics = jmetrics if side == "ref" else tmetrics
             cls, snap, wire = (JDB, jsnap, jwire) if side == "ref" \
                 else (TDB, tsnap, twire)
@@ -179,6 +187,11 @@ def run_in_both(ref_name, test_name, tmp_path, params=None,
             mp.setattr(cls, "__init__", tracked)
             if side == "port":
                 bind_port(ref_mod, mp)
+                # `from dgraph_tpu import native` in a test body reads
+                # the package's attribute, which the sys.modules
+                # aliases of bind_port do not reach
+                mp.setattr(dgraph_tpu, "native",
+                           PortModule(dgraph_tpu_torch.native))
             before = metrics.counters_snapshot()
             seen[side] = _run_pass(
                 ref_mod, test_name, where, params, mp, fixtures or {},
@@ -249,6 +262,21 @@ def test_result_cache_through_both(name, tmp_path):
     run_in_both("test_scaleout", name, tmp_path)
 
 
+@pytest.mark.parametrize("name", LAZY + list(NATIVE_KV_ONLY))
+def test_lazy_tablets_through_both_native_on(name, tmp_path):
+    run_in_both("test_lazy_tablets", name, tmp_path, native=True)
+
+
+@pytest.mark.parametrize("name", PREFETCH)
+def test_prefetch_through_both_native_on(name, tmp_path):
+    run_in_both("test_prefetch", name, tmp_path, native=True)
+
+
+@pytest.mark.parametrize("name", SCALEOUT_CACHE)
+def test_result_cache_through_both_native_on(name, tmp_path):
+    run_in_both("test_scaleout", name, tmp_path, native=True)
+
+
 # -- PyKV --------------------------------------------------------------------
 
 OPS = [("put", b"tab:a", b"x" * 40), ("put", b"meta:max_ts", b"17"),
@@ -290,8 +318,8 @@ def test_pykv_checkpoint_compacts(tmp_path, kv_cls, monkeypatch):
     """PyKV's compaction (the counterpart of the reference's NativeKV
     test_checkpoint_compacts_store): a store-backed engine's checkpoint
     leaves one snapshot and an empty log, and the store still serves.
-    Both packages write the same bytes."""
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    Both packages write the same bytes (runtime off in both)."""
+    switch_native(monkeypatch, False)
     outs = {}
     for side, G, kw in (("ref", JDB, {}), ("port", TDB, {"device": "cpu"})):
         d = tmp_path / side / "store"
@@ -507,8 +535,17 @@ def test_bulkseed_blobs_equal():
 def test_seed_store_serves_in_both(tmp_path, monkeypatch):
     """seed_store into each package's TabletStore writes the same store
     bytes, and the port's engine on the seeded store answers as the
-    reference's."""
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    reference's (runtime off: PyKV)."""
+    switch_native(monkeypatch, False)
+    seed_store_serves_in_both(tmp_path)
+
+
+def test_seed_store_serves_in_both_native_on(tmp_path):
+    """The same on NativeKV, the runtime on in both packages."""
+    seed_store_serves_in_both(tmp_path)
+
+
+def seed_store_serves_in_both(tmp_path):
     schema = ("score: int @index(int) .\ntier: string @index(exact) .\n"
               "follow: [uid] .")
     for side, lazy, seed in (("ref", jlazy, jseed), ("port", tlazy, tseed)):

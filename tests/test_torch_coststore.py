@@ -190,19 +190,22 @@ def test_global_store_is_always_on():
     tcs.reset()
 
 
-def _restart(pkg, tmp_path):
+def _restart(pkg, tmp_path, native=False):
     """A store-backed engine's observations survive a restart: saved
     at close, loaded at open (tests/test_coststore.py's two engine
-    cases)."""
+    cases), with the host runtime on or off in both packages."""
     import dgraph_tpu.native
+    import dgraph_tpu_torch.native
     from dgraph_tpu.engine.db import GraphDB as JDB
     from dgraph_tpu_torch.engine.db import GraphDB as TDB
 
     cs_mod, _, _ = PKGS[pkg]
     G, kw = (JDB, {}) if pkg == "ref" else (TDB, {"device": "cpu"})
     d = tmp_path / pkg
-    orig = dgraph_tpu.native.available
-    dgraph_tpu.native.available = lambda: False
+    mp = pytest.MonkeyPatch()
+    if not native:
+        mp.setattr(dgraph_tpu.native, "available", lambda: False)
+        mp.setattr(dgraph_tpu_torch.native, "available", lambda: False)
     try:
         cs_mod.reset()
         db = G(store_dir=str(d), prefer_device=False, **kw)
@@ -222,10 +225,15 @@ def _restart(pkg, tmp_path):
         db.close()
         return seen > 0, saved, same == seen, 0 < loaded <= seen, keys
     finally:
-        dgraph_tpu.native.available = orig
+        mp.undo()
         cs_mod.reset()
 
 
 def test_engine_persists_coststore_across_restart_alike(tmp_path):
     assert both(lambda pkg: _restart(pkg, tmp_path))[:4] == \
+        (True, True, True, True)
+
+
+def test_engine_persists_coststore_across_restart_alike_native_on(tmp_path):
+    assert both(lambda pkg: _restart(pkg, tmp_path, native=True))[:4] == \
         (True, True, True, True)

@@ -405,8 +405,20 @@ COLD = {"store_dir": _cold_store_dir,
 
 @pytest.mark.parametrize("option", sorted(COLD))
 def test_cold_options_equal_the_reference(option, tmp_path, monkeypatch):
+    """The host runtime switched off in both packages (PyKV stores)."""
     import dgraph_tpu.native
+    import dgraph_tpu_torch.native
     monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(dgraph_tpu_torch.native, "available", lambda: False)
+    j = COLD[option](JDB, {}, tmp_path / "ref")
+    t = COLD[option](TDB, {"device": "cpu"}, tmp_path / "port")
+    assert t == j
+
+
+@pytest.mark.parametrize("option", sorted(COLD))
+def test_cold_options_equal_the_reference_native_on(option, tmp_path):
+    """The same with the runtime on in both (NativeKV stores, the
+    default of either package)."""
     j = COLD[option](JDB, {}, tmp_path / "ref")
     t = COLD[option](TDB, {"device": "cpu"}, tmp_path / "port")
     assert t == j

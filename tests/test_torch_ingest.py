@@ -4,13 +4,14 @@ reference's, on the CPU.
 
 The 13 tests of tests/test_ingest.py that need no server run through
 both packages (tests/test_torch_cold_storage.py's `run_in_both`): every
-engine each pass builds must end with the same dump_tablet bytes, the
-reference's bulk map taking its Python grammar (native off), as the
-port always does. `test_bulk_native_parser_matches_python` becomes the
-port's bulk load against the reference's native columnar map where
-that builds. The three `remote_live_load` tests need the HTTP server
-(ROADMAP Queue 1 item 10); `remote_live_load` is held here against the
-reference's requests through a local recording endpoint instead.
+engine each pass builds must end with the same dump_tablet bytes, with
+the host runtime off in both packages (the bulk map takes the Python
+grammar) and, in the `_native_on` tests, on in both (the native
+columnar map, the default); `test_bulk_native_parser_matches_python`
+runs with the runtime on. The three `remote_live_load` tests need the
+HTTP server (ROADMAP Queue 1 item 10); `remote_live_load` is held here
+against the reference's requests through a local recording endpoint
+instead.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import pytest
 
-import dgraph_tpu.native
+import dgraph_tpu_torch.native
 from dgraph_tpu import wire as jwire
 from dgraph_tpu.engine.db import GraphDB as JDB
 from dgraph_tpu.ingest import bulk as jbulk, convert as jconv
@@ -36,7 +37,9 @@ from dgraph_tpu_torch.engine.db import GraphDB as TDB
 from dgraph_tpu_torch.ingest import bulk as tbulk, convert as tconv
 from dgraph_tpu_torch.ingest import export as texport, live as tlive
 from dgraph_tpu_torch.storage import snapshot as tsnap
-from tests.test_torch_cold_storage import reference_cases, run_in_both
+from tests.test_torch_cold_storage import (
+    _tree, reference_cases, run_in_both, switch_native,
+)
 
 SERVER = ("test_remote_live_load_into_running_alpha",
           "test_remote_live_load_datetime_facet",
@@ -57,6 +60,12 @@ def test_the_reference_file_holds_its_cases():
 def test_ingest_through_both(name, tmp_path):
     run_in_both("test_ingest", name, tmp_path,
                 dumps=name not in CONCURRENT)
+
+
+@pytest.mark.parametrize("name", INGEST + ["test_bulk_native_parser_matches_python"])
+def test_ingest_through_both_native_on(name, tmp_path):
+    run_in_both("test_ingest", name, tmp_path,
+                dumps=name not in CONCURRENT, native=True)
 
 
 def _dumps(db, snap, wire):
@@ -83,40 +92,55 @@ MIXED_SCHEMA = ('name: string @index(term, exact) @lang .\n'
                 'owns: uid .\nscore: float .')
 
 
-def test_bulk_equals_reference_native_map(tmp_path):
-    """The port's Python map against the reference's native columnar map
-    (tests/test_ingest.py's mixed input): equal tablets, and equal
-    dump_tablet bytes to the reference's Python map."""
+def test_bulk_equals_reference_native_map(tmp_path, monkeypatch):
+    """The port's native columnar map (its default) against the
+    reference's (tests/test_ingest.py's mixed input): equal dump_tablet
+    bytes; the port's Python map (the runtime switched off) holds the
+    same tablets, and the same dump_tablet bytes as the reference's
+    Python map."""
     rdf = tmp_path / "mix.rdf"
     rdf.write_text(MIXED)
+    dgraph_tpu_torch.native.reset_calls()
     t = tbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA, device="cpu")
-    want = _dumps(t, tsnap, twire)
-    if dgraph_tpu.native.available():
-        nat = jbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA,
-                              db=JDB(prefer_device=False))
-        assert sorted(nat.tablets) == sorted(t.tablets)
-        for pred in nat.tablets:
-            a, b = nat.tablets[pred], t.tablets[pred]
-            assert {u: v.tolist() for u, v in a.edges.items()} == \
-                {u: v.tolist() for u, v in b.edges.items()}, pred
-            assert repr(sorted(a.values.items())) == \
-                repr(sorted(b.values.items())), pred
-            assert {k: v.tolist() for k, v in a.index.items()} == \
-                {k: v.tolist() for k, v in b.index.items()}, pred
-    orig = dgraph_tpu.native.available
-    dgraph_tpu.native.available = lambda: False
-    try:
-        py = jbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA,
-                             db=JDB(prefer_device=False))
-    finally:
-        dgraph_tpu.native.available = orig
-    assert want == _dumps(py, jsnap, jwire)
+    assert dgraph_tpu_torch.native.rdf_parse.calls > 0
+    nat = jbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA,
+                          db=JDB(prefer_device=False))
+    assert _dumps(t, tsnap, twire) == _dumps(nat, jsnap, jwire)
+    switch_native(monkeypatch, False)
+    tpy = tbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA, device="cpu")
+    assert sorted(tpy.tablets) == sorted(t.tablets)
+    for pred in t.tablets:
+        a, b = t.tablets[pred], tpy.tablets[pred]
+        assert {u: v.tolist() for u, v in a.edges.items()} == \
+            {u: v.tolist() for u, v in b.edges.items()}, pred
+        assert repr(sorted(a.values.items())) == \
+            repr(sorted(b.values.items())), pred
+        assert {k: v.tolist() for k, v in a.index.items()} == \
+            {k: v.tolist() for k, v in b.index.items()}, pred
+    py = jbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA,
+                         db=JDB(prefer_device=False))
+    assert _dumps(tpy, tsnap, twire) == _dumps(py, jsnap, jwire)
 
 
 def test_bulk_offloads_into_a_store_alike(tmp_path, monkeypatch):
     """bulk_load into a store-backed engine offloads each predicate as
-    its reduce finishes: equal store files, and equal export lines."""
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    its reduce finishes: equal store files, and equal export lines
+    (the host runtime off in both packages: PyKV stores)."""
+    switch_native(monkeypatch, False)
+    bulk_offloads_into_a_store_alike(tmp_path)
+    for name in ("SNAPSHOT.py", "WAL"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "ref" / name).read_bytes(), name
+
+
+def test_bulk_offloads_into_a_store_alike_native_on(tmp_path):
+    """The same on NativeKV stores (the runtime on in both): every
+    store file equal."""
+    bulk_offloads_into_a_store_alike(tmp_path)
+    assert _tree(tmp_path / "port") == _tree(tmp_path / "ref")
+
+
+def bulk_offloads_into_a_store_alike(tmp_path):
     rdf = tmp_path / "mix.rdf"
     rdf.write_text(MIXED)
     lines = {}
@@ -132,13 +156,19 @@ def test_bulk_offloads_into_a_store_alike(tmp_path, monkeypatch):
         db.checkpoint()
         db.close()
     assert lines["port"] == lines["ref"]
-    for name in ("SNAPSHOT.py", "WAL"):
-        assert (tmp_path / "port" / name).read_bytes() == \
-            (tmp_path / "ref" / name).read_bytes(), name
 
 
 def test_bulk_shard_outputs_equal(tmp_path, monkeypatch):
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    """The host runtime off in both packages."""
+    switch_native(monkeypatch, False)
+    bulk_shard_outputs_equal(tmp_path)
+
+
+def test_bulk_shard_outputs_equal_native_on(tmp_path):
+    bulk_shard_outputs_equal(tmp_path)
+
+
+def bulk_shard_outputs_equal(tmp_path):
     rdf = tmp_path / "mix.rdf"
     rdf.write_text(MIXED)
     ref = jbulk.bulk_load([str(rdf)], schema=MIXED_SCHEMA,

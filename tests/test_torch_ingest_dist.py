@@ -7,10 +7,13 @@ included: the port's workers and reducers run as
 `python -m dgraph_tpu_torch.ingest.distributed` processes, or as threads
 in the in-process mode. Every group snapshot the port's reducers write
 must be byte-equal to the reference's: the in-process runs' files are
-compared pass against pass, and the port's process-spawned run against
-the reference's in-process run (the reference's spawned reducers take
-its native tokenizer, whose index insertion order gives other bytes for
-the same contents; the port's never do).
+compared pass against pass, with the host runtime off in both packages
+and, in the `_native_on` test, on in both; and the port's
+process-spawned run against the reference's in-process run. A spawned
+child loads its own package's runtime whatever its parent patched, so
+a spawned run's files are compared only with the runtime on (with it
+off in the parent, the children's native tokenizer orders the index
+otherwise for the same contents).
 """
 
 from __future__ import annotations
@@ -19,14 +22,13 @@ import json
 
 import pytest
 
-import dgraph_tpu.native
 from dgraph_tpu.ingest import distributed as jdist
 from dgraph_tpu_torch.ingest import distributed as tdist
 from tests.test_torch_cold_storage import reference_cases, run_in_both
 
 DIST = reference_cases("test_ingest_dist")
-# spawned reference reducers load the native runtime, so their snapshot
-# bytes follow its tokenizer (see the module docstring)
+# spawned reducers load the native runtime, so their snapshot bytes
+# follow its tokenizer (see the module docstring)
 SPAWNED = ("test_worker_sigkill_mid_shuffle_retries_byte_identical",)
 
 
@@ -38,6 +40,11 @@ def test_the_reference_file_holds_its_cases():
 def test_ingest_dist_through_both(name, tmp_path):
     run_in_both("test_ingest_dist", name, tmp_path,
                 compare_files=name not in SPAWNED)
+
+
+@pytest.mark.parametrize("name", DIST)
+def test_ingest_dist_through_both_native_on(name, tmp_path):
+    run_in_both("test_ingest_dist", name, tmp_path, native=True)
 
 
 SCHEMA = """\
@@ -62,12 +69,12 @@ def _rdf(path, n=300):
     return str(path)
 
 
-def test_spawned_reducers_match_the_reference(tmp_path, monkeypatch):
-    """The port's process-spawned load (two workers, three reducers)
-    writes group snapshots byte-equal to the reference's in-process
-    load with native off, and an equal manifest."""
+def test_spawned_reducers_match_the_reference(tmp_path):
+    """The port's process-spawned load (two workers, three reducers,
+    each child on the port's host runtime) writes group snapshots
+    byte-equal to the reference's in-process load with its runtime on,
+    and an equal manifest."""
     rdf = _rdf(tmp_path / "seed.rdf")
-    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
     ref = jdist.distributed_load([rdf], schema=SCHEMA, groups=3, workers=2,
                                  outdir=str(tmp_path / "ref"),
                                  in_process=True, chunk_bytes=4096,

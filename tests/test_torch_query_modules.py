@@ -20,11 +20,11 @@ same inputs go through both packages and every result must be equal.
 
 Then `cluster/shard` and `cluster/errors`, which no reference test
 drives alone, on seeded inputs here. `shard_view` rebuilds the view's
-token index; the reference's native batch tokenizer inserts the index's
-tokens in another order than its Python path (equal contents, other
-`dump_tablet` bytes), and the port tokenizes as that Python path does,
-so the shard test runs the reference with `dgraph_tpu.native.available`
-patched to False (ROADMAP Queue 3).
+token index; the native batch tokenizer inserts the index's tokens in
+another order than the Python path (equal contents, other
+`dump_tablet` bytes), so the shard test runs with the host runtime off
+in both packages (`native.available` patched to False) and, in its
+`_native_on` twin, on in both.
 """
 
 import numpy as np
@@ -102,8 +102,20 @@ def _sharded_engine(G, **kw):
 @pytest.mark.parametrize("invert", [False, True])
 def test_shard_view_equal(pred, invert, monkeypatch):
     import dgraph_tpu.native
+    import dgraph_tpu_torch.native
 
     monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(dgraph_tpu_torch.native, "available", lambda: False)
+    shard_view_equal(pred, invert)
+
+
+@pytest.mark.parametrize("pred", ["name", "friend"])
+@pytest.mark.parametrize("invert", [False, True])
+def test_shard_view_equal_native_on(pred, invert):
+    shard_view_equal(pred, invert)
+
+
+def shard_view_equal(pred, invert):
     j = _sharded_engine(JDB, plan_cache_size=0)
     t = _sharded_engine(TDB, plan_cache_size=0, device="cpu")
     for shard in range(3):

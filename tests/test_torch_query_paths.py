@@ -21,11 +21,10 @@ must move where the reference's test asserts they move.
 The files: `tests/test_fusion.py` (EXPLAIN's fusion tier and fallback
 reasons, the zero-new-executable check on a parameter-only change),
 `test_device_routing.py`, `test_upsert.py` and `test_shortest.py`;
-then the 75 golden queries' `query_json` bytes. The port has no native
-build and always takes the reference's branch for a build without it;
-where the reference has its native build, its columnar JSON emitter
-gives the same bytes as the port's general one on every golden query,
-so neither side is patched.
+then the 75 golden queries' `query_json` bytes, EXPLAIN's
+`planner.memoEntries` and the columnar emitter's
+`query_flat_json_total`, with the host runtime on in both packages (the
+default of either: flat blocks take the native columnar JSON rows).
 """
 
 from __future__ import annotations
@@ -59,10 +58,6 @@ TIMING_KEYS = frozenset((
     # debug_stats' process-global cost table and its summary (every
     # test in the process writes to them)
     "cost", "costStore",
-    # plan memo entries: the reference memoizes one more per block,
-    # the spec of its native columnar JSON emitter, which the port
-    # does not have
-    "memoEntries",
 ))
 
 # names a reference test reads process-global state through (counters,
@@ -491,3 +486,55 @@ def test_golden_query_json_bytes_equal(name):
     got = _data_bytes(port_golden_db().query_json(q))
     assert got == want
     assert json.loads(got) == port_golden_db().query(q)["data"]
+
+
+def test_golden_memo_entries_and_flat_json_equal_native_on():
+    """The 75 goldens through fresh engines of both packages, the host
+    runtime on in both: each `query_json` body's `data` bytes, EXPLAIN's
+    `planner.memoEntries` after each query (flat blocks memoize their
+    column spec), and the columnar emitter's `query_flat_json_total`
+    over the workload are equal, and the emitter served flat blocks."""
+    golden_memo_entries_and_flat_json_equal()
+
+
+def test_golden_memo_entries_and_flat_json_equal_native_off(monkeypatch):
+    """The same with the runtime switched off in both packages
+    (`native.available` False: match() verifies, merge counts and index
+    builds take the Python branches; `json_rows`, which does not consult
+    it in either package, still serves flat blocks)."""
+    import dgraph_tpu.native
+    import dgraph_tpu_torch.native
+
+    monkeypatch.setattr(dgraph_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(dgraph_tpu_torch.native, "available", lambda: False)
+    golden_memo_entries_and_flat_json_equal()
+
+
+def golden_memo_entries_and_flat_json_equal():
+    from dgraph_tpu.utils import metrics as jmetrics
+    from dgraph_tpu_torch.engine.db import GraphDB
+
+    from tests.golden.dataset import generate
+
+    schema, quads = generate()
+    engines = {"ref": JGraphDB(device_min_edges=1),
+               "port": GraphDB(device_min_edges=1, device="cpu")}
+    for db in engines.values():
+        db.alter(schema_text=schema)
+        db.mutate(set_nquads="\n".join(quads))
+    got = {}
+    for side, metrics in (("ref", jmetrics), ("port", tmetrics)):
+        db = engines[side]
+        before = metrics.counters_snapshot()
+        out = []
+        for name in runner.query_names():
+            q = golden_text(name)
+            data = _data_bytes(db.query_json(q))
+            body = json.loads(db.query_json(q, explain="plan"))
+            out.append((name, data, body["extensions"]["explain"][
+                "planner"].get("memoEntries")))
+        flat = metrics.counters_delta(before).get("query_flat_json_total", 0)
+        got[side] = (out, flat)
+    assert got["port"] == got["ref"]
+    assert got["port"][1] > 0
+

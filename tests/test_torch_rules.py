@@ -100,3 +100,27 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     assert proc.returncode != 0
     assert "dgraph_tpu_torch" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_host_runtime_builds_from_the_port_into_its_build_dir():
+    """The port's host runtime builds from its own csrc/native.cc with
+    the reference Makefile's flags, and its loader resolves the library
+    under build/dgraph_tpu_torch/, never under the root native/
+    directory (the reference's source and build)."""
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.ops import _build
+
+    make = (REPO / "native" / "Makefile").read_text().splitlines()
+    cxxflags = next(ln.split("?=")[1].split() for ln in make
+                    if ln.startswith("CXXFLAGS"))
+    assert _build.GXX_FLAGS == (*cxxflags, "-shared")
+    assert _build.source_path("native") == \
+        REPO / "dgraph_tpu_torch" / "csrc" / "native.cc"
+    path = _build.library_path("native")
+    assert path.parent == _build.BUILD_DIR == REPO / "build" / "dgraph_tpu_torch"
+    assert native.available()
+    loaded = Path(native._lib._name).resolve()
+    assert loaded == path
+    assert REPO / "native" not in loaded.parents
+    src = (REPO / "dgraph_tpu_torch" / "native" / "__init__.py").read_text()
+    assert "native/build" not in src and '"make"' not in src

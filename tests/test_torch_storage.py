@@ -25,6 +25,7 @@ from dgraph_tpu.storage import tabstats as jstats
 from dgraph_tpu.storage import vecstore as jvec
 from dgraph_tpu.storage import versions as jver
 from dgraph_tpu.storage.wal import Wal as JWal
+from dgraph_tpu_torch import native as tnative
 from dgraph_tpu_torch import wire as tw
 from dgraph_tpu_torch.engine.db import GraphDB as TDB
 from dgraph_tpu_torch.ops import codec as tcodec
@@ -254,9 +255,10 @@ def test_versions_equal():
 
 
 @pytest.mark.parametrize("n", [0, 1, 47, 48, 10**5])
-def test_gv_streams_equal_reference_native(n):
-    """The port's gv_encode (scalar under 48 uids, numpy at and above)
-    writes the reference's native bytes, and each package decodes the
+def test_gv_streams_equal_reference_native(n, monkeypatch):
+    """The port's gv_encode writes the reference's native bytes through
+    its host runtime and, with the runtime switched off, through its
+    scalar (under 48 uids) and numpy paths; each package decodes the
     other's stream."""
     assert jnative.available()
     rng = np.random.default_rng(n)
@@ -264,15 +266,20 @@ def test_gv_streams_equal_reference_native(n):
                        p=[0.5, 0.3, 0.15, 0.05])
     uids = np.cumsum(steps, dtype=np.uint64)
     blob = jcodec.gv_encode(uids)
-    assert tcodec.gv_encode(uids) == blob
-    assert np.array_equal(tcodec.gv_decode(blob), uids)
-    assert np.array_equal(jcodec.gv_decode(tcodec.gv_encode(uids)), uids)
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr(tnative, "available", lambda: False)
+        assert tcodec.gv_encode(uids) == blob
+        assert np.array_equal(tcodec.gv_decode(blob), uids)
+        assert np.array_equal(jcodec.gv_decode(tcodec.gv_encode(uids)), uids)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 9, 46])
-def test_gv_short_streams_decode_as_numpy(n):
-    """gv_decode's scalar branch (under 48 uids) equals the numpy
-    decoder on the reference's native streams, wide deltas included."""
+def test_gv_short_streams_decode_as_numpy(n, monkeypatch):
+    """gv_decode's scalar branch (under 48 uids, the runtime switched
+    off) equals the numpy decoder on the reference's native streams,
+    wide deltas included."""
+    monkeypatch.setattr(tnative, "available", lambda: False)
     rng = np.random.default_rng(100 + n)
     steps = rng.choice(np.array([1, 300, 70_000, 1 << 40], np.uint64), n)
     uids = np.cumsum(steps, dtype=np.uint64)
@@ -284,11 +291,15 @@ def test_gv_short_streams_decode_as_numpy(n):
 
 
 @pytest.mark.parametrize("n", [5, 47, 48, 200])
-def test_gv_truncated_streams_raise(n):
+def test_gv_truncated_streams_raise(n, monkeypatch):
+    """Both branches of gv_decode refuse a cut stream."""
     blob = jcodec.gv_encode(np.arange(1, n + 1, dtype=np.uint64) * 1000)
-    for cut in (4, 12, len(blob) - 1):
-        with pytest.raises(ValueError, match="gv decode"):
-            tcodec.gv_decode(blob[:cut])
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr(tnative, "available", lambda: False)
+        for cut in (4, 12, len(blob) - 1):
+            with pytest.raises(ValueError, match="gv decode"):
+                tcodec.gv_decode(blob[:cut])
 
 
 # -- tabstats and vecstore ---------------------------------------------------
