@@ -413,7 +413,14 @@ build/host/ (removed at the end):
    tablets), the 75 goldens' encode ms on a scale-1 card engine (equal
    data), and a fresh child's anonymous and file-backed RSS holding
    phase 41's seed (one bench_500m group) in a TabletStore, NativeKV
-   against PyKV.
+   against PyKV;
+55. the native handles' lifetimes: LIFE_ROUNDS rounds of a store-backed
+   engine on the card with prefetch_workers=2 that schedules every
+   predicate and closes while its decodes run (no decode left running,
+   the running ones drained, a late get and a lazy load through the
+   old TabletMap refused); a one-voter raft node over a DiskStorage
+   stopped during appends (its proposes end, the storage closes after
+   it, a late append raises). The counts are printed and asserted.
 
 The planes run in the order BFS, graph ops, write path, queries,
 serving, the cluster and cold storage, set algebra, vectors, load, the
@@ -504,6 +511,11 @@ PER_LIST_LOOP_MS = 7.423
 # the L2 and outlast the host work of the slowest timed wrapper
 # (score_int8_lists builds and pins its table before it launches)
 COLD_FILLS = 4
+# phase 55: close-under-load rounds, and the predicates and rows a
+# round's engine holds (a decode of 4,000 rows takes milliseconds)
+LIFE_ROUNDS = 20
+LIFE_PREDS = 8
+LIFE_ROWS = 4000
 
 
 def log(msg: str) -> None:
@@ -7015,11 +7027,12 @@ def host_rss(card: str, work: str) -> None:
 
 
 def host_plane(dev, card: str, counts: dict) -> None:
-    """Phase 54: the host runtime (`dgraph_tpu_torch.native`,
+    """Phases 54-55: the host runtime (`dgraph_tpu_torch.native`,
     csrc/native.cc, built with g++ in phase 2), in build/host/ (removed
     at the end): it is loaded; every plane took its branches; then bulk
     RDF/s, the goldens' encode ms and a seeded store's RSS with the
-    runtime on and switched off."""
+    runtime on and switched off; last, the native handles closed under
+    load (phase 55)."""
     import shutil
     import subprocess
 
@@ -7044,8 +7057,138 @@ def host_plane(dev, card: str, counts: dict) -> None:
         host_bulk(dev, card, work)
         host_encode(dev, card)
         host_rss(card, work)
+        t0 = time.perf_counter()
+        life_prefetch(dev, card, work)
+        life_raft(card, work)
+        log(f"phase 55: {time.perf_counter() - t0:.1f} s | {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def life_prefetch(dev, card: str, work: str) -> None:
+    """Phase 55, the engine: close a store-backed card engine while
+    its prefetch decodes run, LIFE_ROUNDS times."""
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.engine.db import GraphDB
+
+    store = os.path.join(work, "life_store")
+    preds = [f"p{i}" for i in range(LIFE_PREDS)]
+    db = GraphDB(store_dir=store, device=dev)
+    db.alter(schema_text="".join(f"{p}: int @index(int) .\n"
+                                 for p in preds))
+    db.mutate(set_nquads="\n".join(
+        f'<{u:#x}> <{p}> "{u % 997}" .' for p in preds
+        for u in range(1, LIFE_ROWS + 1)))
+    db.rollup_all()
+    db.close()
+    drained = cancelled = refused = absent = 0
+    for _ in range(LIFE_ROUNDS):
+        db = GraphDB(store_dir=store, device=dev, prefetch_workers=2)
+        kv, tablets, pf = db.tablet_store.kv, db.tablets, db.prefetcher
+        if not isinstance(kv, native.NativeKV):
+            raise AssertionError(f"phase 55: the store is "
+                                 f"{type(kv).__name__}")
+        if pf.schedule(db, preds) != LIFE_PREDS:
+            raise AssertionError("phase 55: not every predicate scheduled")
+        futs = list(pf._inflight.values())
+        db.close()
+        if not all(f.done() for f in futs):
+            raise AssertionError("phase 55: a decode outlived close")
+        cancelled += sum(f.cancelled() for f in futs)
+        drained += sum(not f.cancelled() for f in futs)
+        try:
+            kv.get(b"tab:p0")
+        except native.ClosedError:
+            refused += 1
+        absent += tablets.get("p0") is None
+    if refused != LIFE_ROUNDS or absent != LIFE_ROUNDS:
+        raise AssertionError(f"phase 55: late gets refused {refused}, "
+                             f"lazy loads absent {absent} of {LIFE_ROUNDS}")
+    if drained + cancelled != LIFE_ROUNDS * LIFE_PREDS or drained == 0:
+        raise AssertionError(f"phase 55: {drained} drained, {cancelled} "
+                             f"cancelled of {LIFE_ROUNDS * LIFE_PREDS}")
+    log(f"phase 55 engine: {LIFE_ROUNDS} rounds closed under prefetch of "
+        f"{LIFE_PREDS} predicates x {LIFE_ROWS} rows (2 workers): "
+        f"{drained} decodes drained, {cancelled} cancelled, 0 running "
+        f"after close; late gets refused {refused}, lazy loads absent "
+        f"{absent} | {card}")
+
+
+def life_raft(card: str, work: str) -> None:
+    """Phase 55, raft: stop a one-voter node over a DiskStorage while
+    a thread appends through it, then close the storage."""
+    import socket
+    import threading
+
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.cluster.raft import DiskStorage, Entry
+    from dgraph_tpu_torch.cluster.service import RaftServer
+
+    class Node(RaftServer):
+        def sm_apply(self, origin, payload):
+            return payload
+
+        def sm_snapshot(self):
+            return {}
+
+        def sm_restore(self, snap):
+            pass
+
+        def handle_request(self, req):
+            return {"ok": True}
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    storage = DiskStorage(os.path.join(work, "life_raft"))
+    if not isinstance(storage._kv, native.NativeKV):
+        raise AssertionError("phase 55: the raft store is not NativeKV")
+    srv = Node(1, {1: ("127.0.0.1", free_port())},
+               ("127.0.0.1", free_port()), storage=storage, tick_s=0.01,
+               election_ticks=3)
+    deadline = time.monotonic() + 30
+    while not srv.is_leader():
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 55: no raft leader")
+        time.sleep(0.01)
+    done = {"ok": 0, "refused": 0, "errors": []}
+
+    def appender():
+        i = 0
+        while True:
+            try:
+                ok, _ = srv.propose_and_wait(("w", i), timeout=5)
+            except Exception as e:  # noqa: BLE001 — reported below
+                done["errors"].append(repr(e))
+                return
+            if not ok:
+                done["refused"] += 1
+                return
+            done["ok"] += 1
+            i += 1
+
+    t = threading.Thread(target=appender)
+    t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    srv.close()
+    storage.close()
+    stop_ms = (time.perf_counter() - t0) * 1e3
+    t.join(30)
+    late = 0
+    try:
+        storage.append([Entry(1, 1 << 40, None)])
+    except native.ClosedError:
+        late = 1
+    if t.is_alive() or done["errors"] or not done["ok"] \
+            or done["refused"] != 1 or late != 1:
+        raise AssertionError(f"phase 55: raft stop {done}, late {late}")
+    log(f"phase 55 raft: {done['ok']} appends committed through a "
+        f"DiskStorage, node stopped and storage closed in {stop_ms:.2f} "
+        f"ms during appends, the next propose refused, a late append "
+        f"raised ClosedError | {card}")
 
 
 def main() -> int:

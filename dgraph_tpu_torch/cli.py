@@ -250,7 +250,13 @@ def cmd_node(args) -> int:
     _start_watchdog(srv, getattr(srv, "node_name",
                                  f"{args.kind}-{args.id}"),
                     wal_path=args.wal)
-    srv.serve_forever()
+    try:
+        srv.serve_forever()
+    finally:
+        # the server's raft steps end before its storage closes
+        srv.close()
+        if storage is not None:
+            storage.close()
     return 0
 
 

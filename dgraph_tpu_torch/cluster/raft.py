@@ -201,6 +201,12 @@ class DiskStorage(MemoryStorage):
             self._kv.flush()
 
     def close(self):
+        # Users of the handle: the raft steps of a RaftServer (its tick
+        # loop, the transport's inbound messages, client proposes), all
+        # under the server's lock. RaftServer.close waits out the step
+        # in flight and stops later ones, so the owner closes this
+        # after the server; a call that still arrives raises the
+        # store's ClosedError (native store) into that step's thread.
         self._kv.close()
 
 

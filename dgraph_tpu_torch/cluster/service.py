@@ -221,6 +221,8 @@ class RaftServer:
         tracing.set_thread_node(self.node_name)
         while not self._stop.wait(self.tick_s):
             with self.lock:
+                if self._stop.is_set():
+                    return  # close came between the wait and the lock
                 self.node.tick()
                 out = self._drain_ready()
             self._send_all(out)
@@ -519,6 +521,8 @@ class RaftServer:
         (the one-conf-change-in-flight rule) need that atomicity."""
         mark = (self.id, self.epoch, next(self._mark_seq))
         with self.lock:
+            if self._stop.is_set():
+                return False, None
             if gate is not None:
                 err = gate()
                 if err:
@@ -709,6 +713,12 @@ class RaftServer:
         return out
 
     def close(self):
+        """Stop the node. Every raft step (a tick, an inbound message,
+        a propose) writes the node's storage under `self.lock` and
+        checks `_stop` there first; taking the lock below waits out the
+        step in flight, so once close returns no thread of this node
+        writes its storage, and its owner may close it (the `node`
+        command closes its DiskStorage after the server)."""
         self._stop.set()
         self.transport.close()
         if self.debug_httpd is not None:
@@ -1351,8 +1361,8 @@ class AlphaServer(RaftServer):
         with self._write_lock:
             return self._drain_finalizes_locked(hint)
 
-    def _drain_finalizes_locked(self, hint: tuple[int, int] | None = None
-                                ) -> bool:
+    def _drain_finalizes_locked(self, hint: tuple[int, int] | None = None,
+                                below: int | None = None) -> bool:
         """Apply every DECIDED pending 2PC fragment in COMMIT-TS
         order, atomically with respect to other drains. Caller holds
         _write_lock.
@@ -1373,7 +1383,10 @@ class AlphaServer(RaftServer):
         Ordering is sufficient: zero decides serially, so a stage
         still undecided during the gather will get a commit_ts above
         everything already decided.  `hint` = (commit_ts, start_ts)
-        already known by the caller (saves one RPC)."""
+        already known by the caller (saves one RPC).  `below` bounds the
+        drain to fragments decided below that commit ts (a local
+        commit's reserved ts, `_drain_before_local_apply`); the others
+        stay pending."""
         with self._finalize_lock:
             with self.lock:
                 pend = sorted(self.db.pending_txns)
@@ -1392,8 +1405,9 @@ class AlphaServer(RaftServer):
                 if not got.get("ok"):
                     return False
                 if got["result"]["decided"]:
-                    decided.append(
-                        (int(got["result"]["commit_ts"]), st))
+                    c = int(got["result"]["commit_ts"])
+                    if below is None or c < below:
+                        decided.append((c, st))
             for c, st in sorted(decided):
                 try:
                     # chaos seam: delay/fail a decided fragment's
@@ -1427,8 +1441,11 @@ class AlphaServer(RaftServer):
 
     def _drain_before_local_apply(self, commit_ts: int) -> bool:
         """Between a local commit's ts RESERVATION and its APPLY, land
-        every already-decided pending 2PC fragment (all necessarily
-        below our ts). Caller holds _write_lock.
+        every pending 2PC fragment decided below our ts. Caller holds
+        _write_lock. A fragment zero decides while we gather (after our
+        reservation) carries a ts above ours: it stays pending and lands
+        after our apply, as its finalize waits on _write_lock (draining
+        it here applied ts + 1 before ts: the out-of-order hard error).
 
         Retries patiently on gather failure: zero answered the
         reservation RPC moments ago, so unreachability here is a
@@ -1443,7 +1460,7 @@ class AlphaServer(RaftServer):
             if not self.db.pending_txns:
                 return True
         deadline = time.monotonic() + 30.0
-        while not self._drain_finalizes_locked():
+        while not self._drain_finalizes_locked(below=commit_ts):
             if time.monotonic() >= deadline or self._stop.is_set():
                 log.warning("commit_undrained_pendings",
                             commit_ts=commit_ts)
@@ -2082,11 +2099,11 @@ class AlphaServer(RaftServer):
                     if not txn.done:
                         self.db.discard(txn)
                     raise
-                # Every already-DECIDED cross-group fragment carries a
-                # commit ts BELOW ours (zero assigns monotonically and
-                # decides serially), so applying them first reproduces
-                # log order; anything still undecided will land above
-                # ours and may apply later
+                # A cross-group fragment decided before our reservation
+                # carries a commit ts BELOW ours (zero assigns
+                # monotonically and decides serially), so applying
+                # those first reproduces log order; one decided after
+                # it lands above ours and applies later
                 if self._drain_before_local_apply(commit_ts):
                     commit_ts = self._capture_and_replicate(
                         lambda db: db.commit_apply(txn, commit_ts))

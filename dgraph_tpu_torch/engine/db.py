@@ -1043,18 +1043,19 @@ class GraphDB:
                 pass  # stats are advisory; shutdown must not fail
             self._coststore_path = None
         if self.prefetcher is not None:
-            # stop the decode workers BEFORE the store closes: an
-            # in-flight worker reading a closed native handle is fatal
+            # the decode workers end BEFORE the store closes: close
+            # cancels the queued decodes and waits for the running ones
             self.prefetcher.close()
             self.prefetcher = None
         if self.tablet_store is not None:
             self.tablets.flush_all()
             self.tablet_store.close()
             self.tablet_store = None
-            # the TabletMap must not outlive its store (a lazy load on
-            # a closed native handle would be fatal): degrade to a
-            # plain dict of whatever is resident — stored-only
-            # predicates are no longer reachable after close
+            # a closed native store raises ClosedError on every call:
+            # degrade the TabletMap to a plain dict of whatever is
+            # resident — stored-only predicates are no longer reachable
+            # after close (a lazy load through a TabletMap a query
+            # thread still holds finds them absent, TabletMap.get)
             self.tablets = {p: t for p, t in dict.items(self.tablets)}
         if self.wal:
             self.wal.close()

@@ -38,6 +38,7 @@ from collections import OrderedDict
 from typing import Optional
 
 from dgraph_tpu_torch import wire
+from dgraph_tpu_torch.native import ClosedError
 from dgraph_tpu_torch.utils.metrics import inc_counter
 
 _TAB_PREFIX = b"tab:"
@@ -105,6 +106,12 @@ class TabletStore:
             self.kv.snapshot()
 
     def close(self) -> None:
+        # Users of the handle: the engine thread (TabletMap loads,
+        # offload, flush_all), query threads (TabletMap.get's lazy
+        # loads) and the prefetch workers (PrefetchPool._decode).
+        # GraphDB.close drains the prefetch pool and flushes first; a
+        # load that arrives after this raises ClosedError (native
+        # store), which TabletMap.get reads as "not stored".
         self.kv.close()
 
 
@@ -145,7 +152,12 @@ class TabletMap(dict):
                 if tab is None:
                     pf.miss()
             if tab is None:
-                tab = self.store.load(pred, self.db.schema)
+                try:
+                    tab = self.store.load(pred, self.db.schema)
+                except ClosedError:
+                    # GraphDB.close closed the store under this map:
+                    # stored-only predicates are no longer reachable
+                    return default
             if tab is not None:
                 inc_counter("tablet_store_loads")
                 dict.__setitem__(self, pred, tab)

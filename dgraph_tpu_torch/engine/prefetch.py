@@ -46,6 +46,7 @@ import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
+from dgraph_tpu_torch.native import ClosedError
 from dgraph_tpu_torch.utils.metrics import inc_counter, set_gauge
 
 _scratch_local = threading.local()
@@ -160,11 +161,17 @@ class PrefetchPool:
                     "waits": self.waits, "bytes": self.bytes}
 
     def close(self) -> None:
+        """Cancel the queued decodes, then wait for the running ones,
+        so that the store outlives every read of it (GraphDB.close
+        closes the store right after). The wait holds no lock: a decode
+        takes only the store's handle and builds a fresh tablet, so a
+        caller may close from any thread that holds no store call
+        open."""
         with self._lock:
             self._closed = True
             self._inflight.clear()
             set_gauge("prefetch_queue_depth", 0)
-        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
     # ------------------------------------------------------------ worker
 
@@ -176,7 +183,12 @@ class PrefetchPool:
         from dgraph_tpu_torch.storage.snapshot import restore_tablet
 
         _worker_scratch()  # pin per-thread codec scratch
-        blob = self.store.kv.get(b"tab:" + pred.encode("utf-8"))
+        try:
+            blob = self.store.kv.get(b"tab:" + pred.encode("utf-8"))
+        except ClosedError:
+            # the store closed first (close drains the pool, so only a
+            # store closed behind the engine's back): nothing loaded
+            return None, 0
         if blob is None:
             return None, 0
         payload = wire.loads(blob)

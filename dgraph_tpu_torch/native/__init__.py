@@ -21,6 +21,13 @@ Each binding counts the calls that reach its C entry in
 `<binding>.calls` (the classes count opens), as the kernel wrappers
 count launches, so a run can show which branches it took
 (`call_counts`).
+
+`NativeKV` and `NativeWal` own a C handle that `close` frees. Every
+method holds the handle for the span of its C calls, `close` waits for
+the call in flight and frees the handle once, and any later call raises
+`ClosedError` instead of passing a NULL or freed pointer to C (see
+`_Handle`). The handle-free functions (the codec, the tokenizer, the
+parser, the match and JSON loops) take no hold.
 """
 
 from __future__ import annotations
@@ -166,99 +173,171 @@ def _buf(b: bytes):
                        ctypes.POINTER(ctypes.c_uint8))
 
 
-class NativeKV:
+class ClosedError(ValueError):
+    """A call on a NativeKV or NativeWal (or a step of a NativeKV scan)
+    after the store's close; no C entry was reached."""
+
+
+class _Handle:
+    """A C handle held across each call and freed once.
+
+    Every method runs its C calls inside `with self._mu:` (through
+    `_live`), one uncontended acquire and release a call. The store's C
+    entries take its own mutex for the same span, so the hold serializes
+    nothing the store did not, apart from a scan's steps. `close` frees
+    the handle under the same lock, so it waits for the call in flight,
+    and a later call finds `_h` cleared and raises ClosedError. The lock
+    is reentrant: a scan generator dropped half-way may be finalized by
+    the garbage collector inside another method of the same store on
+    the same thread."""
+
+    def __init__(self, h):
+        self._mu = threading.RLock()
+        self._h = h
+
+    def _live(self):
+        """The handle; call with `_mu` held."""
+        h = self._h
+        if not h:
+            raise ClosedError(f"{type(self).__name__} is closed")
+        return h
+
+    def _free(self, h) -> None:
+        """Free `h` and what it owns; `_mu` is held."""
+        raise NotImplementedError
+
+    def close(self):
+        with self._mu:
+            h, self._h = self._h, None
+            if h:
+                self._free(h)
+
+
+class NativeKV(_Handle):
     """Ordered KV store with WAL durability + snapshot compaction.
     Crash recovery = snapshot load + WAL replay with torn-tail truncate
     (the contract Badger provides the reference)."""
-    # dglint: guarded-by=*:external (the native layer has its own
-    # internal locking for reads; writes arrive only on the engine's
-    # serialized write path — Python-side handle state is set once in
-    # __init__ and cleared only at close)
+    # dglint: guarded-by=_h:_mu,_iters:_mu (every C call runs under
+    # the handle's hold; close frees under it)
 
     def __init__(self, directory: str, sync: bool = False):
         lib = _load()
         self._lib = lib
-        self._h = lib.dgt_kv_open(directory.encode(), 1 if sync else 0)
+        super().__init__(lib.dgt_kv_open(directory.encode(),
+                                         1 if sync else 0))
+        # open scans' C iterators, by a token of their own (an address
+        # may be reused once freed); close frees them with the store
+        self._iters: dict[object, int] = {}
         _count(NativeKV)
         if not self._h:
             raise OSError(f"cannot open native kv store at {directory}")
 
     def put(self, key: bytes, val: bytes):
-        if self._lib.dgt_kv_put(self._h, _buf(key), len(key),
-                                _buf(val), len(val)) != 0:
+        with self._mu:
+            rc = self._lib.dgt_kv_put(self._live(), _buf(key), len(key),
+                                      _buf(val), len(val))
+        if rc != 0:
             raise OSError("kv put failed")
 
     def delete(self, key: bytes):
-        if self._lib.dgt_kv_del(self._h, _buf(key), len(key)) != 0:
+        with self._mu:
+            rc = self._lib.dgt_kv_del(self._live(), _buf(key), len(key))
+        if rc != 0:
             raise OSError("kv del failed")
 
     def get(self, key: bytes):
         # size-probe + copy are separate store calls; retry if a
         # concurrent writer grew the value in between.
-        n = self._lib.dgt_kv_get(self._h, _buf(key), len(key), None, 0)
-        while True:
-            if n < 0:
-                return None
-            out = (ctypes.c_uint8 * max(n, 1))()
-            m = self._lib.dgt_kv_get(self._h, _buf(key), len(key), out, n)
-            if m < 0:
-                return None
-            if m <= n:
-                # string_at copies the buffer once; the reference's
-                # bytes(out[:m]) goes through a list of m ints
-                return ctypes.string_at(out, m)
-            n = m
+        with self._mu:
+            h = self._live()
+            n = self._lib.dgt_kv_get(h, _buf(key), len(key), None, 0)
+            while True:
+                if n < 0:
+                    return None
+                out = (ctypes.c_uint8 * max(n, 1))()
+                m = self._lib.dgt_kv_get(h, _buf(key), len(key), out, n)
+                if m < 0:
+                    return None
+                if m <= n:
+                    # string_at copies the buffer once; the reference's
+                    # bytes(out[:m]) goes through a list of m ints
+                    return ctypes.string_at(out, m)
+                n = m
 
     def __len__(self):
-        return self._lib.dgt_kv_count(self._h)
+        with self._mu:
+            return self._lib.dgt_kv_count(self._live())
 
     def scan(self, prefix: bytes = b""):
-        """Yields (key, value) over a stable snapshot, key-ordered."""
-        it = self._lib.dgt_kv_iter(self._h, _buf(prefix), len(prefix))
+        """Yields (key, value) over a stable snapshot, key-ordered.
+
+        Each step holds the store as a call does. A close frees the
+        open scans' iterators with the store, and a scan's next step
+        then raises ClosedError; a scan dropped half-way frees its
+        iterator when the generator is finalized. So close neither
+        waits on a consumer that went away nor frees the store under a
+        live iterator."""
+        token = object()
+        with self._mu:
+            it = self._lib.dgt_kv_iter(self._live(), _buf(prefix),
+                                       len(prefix))
+            self._iters[token] = it
         try:
             klen = ctypes.c_uint64()
             vlen = ctypes.c_uint64()
-            while self._lib.dgt_kv_iter_next(
-                    it, None, 0, ctypes.byref(klen),
-                    None, 0, ctypes.byref(vlen)) == 0:
-                kout = (ctypes.c_uint8 * max(klen.value, 1))()
-                vout = (ctypes.c_uint8 * max(vlen.value, 1))()
-                self._lib.dgt_kv_iter_next(
-                    it, kout, klen.value, ctypes.byref(klen),
-                    vout, vlen.value, ctypes.byref(vlen))
+            while True:
+                with self._mu:
+                    if token not in self._iters:
+                        raise ClosedError("NativeKV closed during a scan")
+                    if self._lib.dgt_kv_iter_next(
+                            it, None, 0, ctypes.byref(klen),
+                            None, 0, ctypes.byref(vlen)) != 0:
+                        return
+                    kout = (ctypes.c_uint8 * max(klen.value, 1))()
+                    vout = (ctypes.c_uint8 * max(vlen.value, 1))()
+                    self._lib.dgt_kv_iter_next(
+                        it, kout, klen.value, ctypes.byref(klen),
+                        vout, vlen.value, ctypes.byref(vlen))
                 yield (ctypes.string_at(kout, klen.value),
                        ctypes.string_at(vout, vlen.value))
         finally:
-            self._lib.dgt_kv_iter_close(it)
+            with self._mu:
+                if self._iters.pop(token, None) is not None:
+                    self._lib.dgt_kv_iter_close(it)
 
     def flush(self):
-        self._lib.dgt_kv_flush(self._h)
+        with self._mu:
+            self._lib.dgt_kv_flush(self._live())
 
     def snapshot(self):
         """Durability point: flush the memtable to a run and fully
         compact the runs into one, truncating the WAL (the LSM's
         replacement for the old whole-store SNAPSHOT dump)."""
-        if self._lib.dgt_kv_snapshot(self._h) != 0:
+        with self._mu:
+            rc = self._lib.dgt_kv_snapshot(self._live())
+        if rc != 0:
             raise OSError("kv snapshot failed")
 
     def set_memtable(self, nbytes: int):
         """Lower/raise the memtable flush threshold (default 64MB, or
         DGT_KV_MEMTABLE_BYTES at open)."""
-        self._lib.dgt_kv_set_memtable(self._h, nbytes)
+        with self._mu:
+            self._lib.dgt_kv_set_memtable(self._live(), nbytes)
 
-    def close(self):
-        if self._h:
-            self._lib.dgt_kv_close(self._h)
-            self._h = None
+    def _free(self, h) -> None:
+        for it in self._iters.values():
+            self._lib.dgt_kv_iter_close(it)
+        self._iters.clear()
+        self._lib.dgt_kv_close(h)
 
 
-class NativeWal:
+class NativeWal(_Handle):
     """Append-only CRC-framed record log (the raftwal/storage.go role)."""
 
     def __init__(self, path: str, sync: bool = False):
         lib = _load()
         self._lib = lib
-        self._h = lib.dgt_wal_open(path.encode(), 1 if sync else 0)
+        super().__init__(lib.dgt_wal_open(path.encode(), 1 if sync else 0))
         _count(NativeWal)
         if not self._h:
             from dgraph_tpu_torch.storage.wal import raise_if_legacy_wal
@@ -266,19 +345,24 @@ class NativeWal:
             raise OSError(f"cannot open wal at {path}")
 
     def append(self, payload: bytes):
-        if self._lib.dgt_wal_append(self._h, _buf(payload),
-                                    len(payload)) != 0:
+        with self._mu:
+            rc = self._lib.dgt_wal_append(self._live(), _buf(payload),
+                                          len(payload))
+        if rc != 0:
             raise OSError("wal append failed")
 
     def flush(self):
-        self._lib.dgt_wal_flush(self._h)
+        with self._mu:
+            self._lib.dgt_wal_flush(self._live())
 
     def replay(self):
         """All valid records in order (truncates any torn tail)."""
         total = ctypes.c_uint64()
         count = ctypes.c_uint64()
-        buf = self._lib.dgt_wal_replay(self._h, ctypes.byref(total),
-                                       ctypes.byref(count))
+        with self._mu:
+            buf = self._lib.dgt_wal_replay(self._live(),
+                                           ctypes.byref(total),
+                                           ctypes.byref(count))
         records = []
         if buf and total.value:
             raw = ctypes.string_at(buf, total.value)
@@ -292,13 +376,13 @@ class NativeWal:
         return records
 
     def truncate(self):
-        if self._lib.dgt_wal_truncate(self._h) != 0:
+        with self._mu:
+            rc = self._lib.dgt_wal_truncate(self._live())
+        if rc != 0:
             raise OSError("wal truncate failed")
 
-    def close(self):
-        if self._h:
-            self._lib.dgt_wal_close(self._h)
-            self._h = None
+    def _free(self, h) -> None:
+        self._lib.dgt_wal_close(h)
 
 
 def gv_encode(uids) -> bytes:

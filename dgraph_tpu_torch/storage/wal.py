@@ -193,4 +193,10 @@ class Wal:
         self._w.flush()
 
     def close(self):
+        # Users of the handle: the engine's commit path (GraphDB's
+        # _log_record, on the raft-apply thread or under the alpha's
+        # write lock) and its replay at open. GraphDB.close closes the
+        # log last, after the prefetch pool and the tablet store; a
+        # commit that races it gets the native log's ClosedError, as a
+        # write to a closed file raises ValueError on the Python log.
         self._w.close()

@@ -23,6 +23,11 @@ own runtime witness armed, and a witnessed race fails it
 The reference's two NativeKV tests (`test_checkpoint_compacts_store`,
 `test_lsm_compaction_crash_window_no_resurrection`) run with the
 runtime on only; their PyKV counterparts run here on both packages.
+
+In the `_native_on` prefetch twins the reference's pass runs with its
+`PrefetchPool.close` waiting for running decodes, as the port's does
+(`drain_reference_prefetch`): as it stands, the reference closes its
+store under a running decode, which kills the process.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import dgraph_tpu.native
 import dgraph_tpu_torch.native
 from dgraph_tpu import wire as jwire
 from dgraph_tpu.engine import lazy_tablets as jlazy
+from dgraph_tpu.engine import prefetch as jprefetch
 from dgraph_tpu.engine.db import GraphDB as JDB
 from dgraph_tpu.storage import bulkseed as jseed
 from dgraph_tpu.storage import kvfallback as jkv
@@ -155,9 +161,27 @@ def switch_native(mp, on: bool) -> None:
         mp.setattr(dgraph_tpu_torch.native, "available", lambda: False)
 
 
+def drain_reference_prefetch(mp) -> None:
+    """The reference's `PrefetchPool.close` made to wait for its running
+    decodes, as the port's does. As it stands it cancels only the queued
+    ones (`dgraph_tpu/engine/prefetch.py:157-162`), and `GraphDB.close`
+    then closes the store under a decode still reading it: with the
+    host runtime on, that decode's `NativeKV.get`
+    (`dgraph_tpu/native/__init__.py:216`) reads a freed handle and the
+    process dies. The reference is frozen, so its pass of the
+    `_native_on` prefetch twins runs with this shim; the port's pass
+    runs as it is."""
+    close = jprefetch.PrefetchPool.close
+
+    def draining(self):
+        close(self)
+        self._pool.shutdown(wait=True)
+    mp.setattr(jprefetch.PrefetchPool, "close", draining)
+
+
 def run_in_both(ref_name, test_name, tmp_path, params=None,
                 compare_files=True, opaque=(), fixtures=None, collect=None,
-                dumps=True, native=False):
+                dumps=True, native=False, ref_setup=None):
     """Run `tests.<ref_name>.<test_name>` on the reference and on the
     port, each in its own directory, with the host runtime on or off in
     both (`native`); then hold their files and counters equal. `opaque` names files compared by length only
@@ -165,7 +189,8 @@ def run_in_both(ref_name, test_name, tmp_path, params=None,
     module's fixtures by name; `collect(args)`, given the test's
     resolved arguments after each pass, returns what must be equal
     between the passes. With `dumps`, every engine either pass built
-    must end with the same dump_tablet bytes as its counterpart."""
+    must end with the same dump_tablet bytes as its counterpart.
+    `ref_setup(monkeypatch)` runs before the reference's pass only."""
     ref_mod = importlib.import_module(f"tests.{ref_name}")
     params = dict(params or {})
     got, seen, built = {}, {}, {}
@@ -185,6 +210,8 @@ def run_in_both(ref_name, test_name, tmp_path, params=None,
                 _init(self, *a, **kw)
                 _engines.append(self)
             mp.setattr(cls, "__init__", tracked)
+            if side == "ref" and ref_setup is not None:
+                ref_setup(mp)
             if side == "port":
                 bind_port(ref_mod, mp)
                 # `from dgraph_tpu import native` in a test body reads
@@ -269,7 +296,8 @@ def test_lazy_tablets_through_both_native_on(name, tmp_path):
 
 @pytest.mark.parametrize("name", PREFETCH)
 def test_prefetch_through_both_native_on(name, tmp_path):
-    run_in_both("test_prefetch", name, tmp_path, native=True)
+    run_in_both("test_prefetch", name, tmp_path, native=True,
+                ref_setup=drain_reference_prefetch)
 
 
 @pytest.mark.parametrize("name", SCALEOUT_CACHE)

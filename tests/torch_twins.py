@@ -60,6 +60,7 @@ import functools
 import importlib
 import inspect
 import json
+import os
 import random
 import re
 import socket
@@ -512,7 +513,21 @@ def witnessed(pkg: str, marks: dict):
 # below Linux's default ephemeral range (32768-60999), from which the
 # kernel picks the local port of every outbound connection
 STEADY_PORTS = (20000, 32768)
+# disjoint slices of STEADY_PORTS, one a pytest-xdist worker (gwN takes
+# slice N mod PORT_SLICES; a replaced worker's N runs on past the count)
+PORT_SLICES = 16
 _port_rng = random.Random()
+_port_next: dict = {}  # slice -> the next port to try
+
+
+def port_slice(worker: str | None) -> tuple[int, int]:
+    """The [lo, hi) ports of STEADY_PORTS that xdist worker `worker`
+    (PYTEST_XDIST_WORKER, None outside xdist) draws from."""
+    n = int(worker[2:]) if worker and worker[2:].isdigit() else 0
+    lo, hi = STEADY_PORTS
+    width = (hi - lo) // PORT_SLICES
+    start = lo + n % PORT_SLICES * width
+    return start, start + width
 
 
 def steady_free_ports(n: int) -> list[int]:
@@ -523,12 +538,18 @@ def steady_free_ports(n: int) -> list[int]:
     ports) finds it taken whenever an outbound connection of another
     process picked it as its local port in between, and exits at bind
     (`Address already in use`), which a busy host running other
-    clusters' clients makes likely."""
+    clusters' clients makes likely. Each xdist worker draws from its own
+    slice (`port_slice`): two workers' clusters that drew the same free
+    port at once left one node unable to bind, and a case with no
+    leader. Within the slice the ports are handed out in turn from a
+    random start, so one comes back only after the whole slice has:
+    a client of an earlier case still dialling its node never reaches a
+    later case's node."""
     out: list[int] = []
+    lo, hi = span = port_slice(os.environ.get("PYTEST_XDIST_WORKER"))
+    port = _port_next.get(span, _port_rng.randrange(lo, hi))
     while len(out) < n:
-        port = _port_rng.randrange(*STEADY_PORTS)
-        if port in out:
-            continue
+        port = lo + (port + 1 - lo) % (hi - lo)
         s = socket.socket()
         try:
             s.bind(("127.0.0.1", port))
@@ -537,6 +558,7 @@ def steady_free_ports(n: int) -> list[int]:
         finally:
             s.close()
         out.append(port)
+    _port_next[span] = port
     return out
 
 
@@ -724,9 +746,14 @@ def run_twins(ref_name, cases, tmp_path, compare="multiset", capsys=None,
         if capsys is not None:
             capsys.readouterr()
             builtins["capsys"] = capsys
-        logs[side] = _run_side(side, ref_mod, list(cases), where, builtins,
-                               port_setup if side == "port" else None,
-                               helpers, setup)
+        try:
+            logs[side] = _run_side(side, ref_mod, list(cases), where,
+                                   builtins,
+                                   port_setup if side == "port" else None,
+                                   helpers, setup)
+        except Exception as e:
+            e.add_note(f"(in the {side} pass)")
+            raise
     if compare == "multiset":
         assert sorted(map(repr, logs["port"])) == \
             sorted(map(repr, logs["ref"]))
