@@ -34,6 +34,7 @@ from dgraph_tpu_torch.ops.kernels import (
     bucket_or, bucket_or_level, segment_words, word_bits,
 )
 from dgraph_tpu_torch.ops.kernels import popcount_sum  # noqa: F401 (API)
+from dgraph_tpu_torch.utils.tracing import stage
 
 INT32_INF = np.int32(2**31 - 1)
 
@@ -617,37 +618,44 @@ def make_bfs_digest_batched(badj: BitAdjacency, core: CoreAdjacency,
         if tuple(seed_slots.shape) != (n_queries, n_seeds):
             raise ValueError(f"seed_slots must be [{n_queries}, {n_seeds}]"
                              f", got {tuple(seed_slots.shape)}")
-        dev = seed_slots.device
-        q = torch.arange(n_queries, device=dev)
-        bit = word_bits(dev)[q % 32]
-        word = q // 32
-        f = torch.zeros((N + 1, W), dtype=torch.int32, device=dev)
-        # ADD equals OR: uid_lists_to_seed_slots made (query, slot)
-        # pairs unique, and int32 addition of 1 << 31 wraps to its bits
-        f.index_put_((seed_slots.reshape(-1).long(),
-                      word.repeat_interleave(n_seeds)),
-                     bit.repeat_interleave(n_seeds), accumulate=True)
-        f[N].zero_()                      # dummy slot absorbs padding
-        fmask = seed_masks(seed_slots, N + 1, W)
-        sums = torch.zeros(max(depth, 1), dtype=torch.int64, device=dev)
-        frontier, fr_mask = core_arrays(dev)
-        visited = torch.empty_like(frontier)
-        visited[ncov].zero_()
-        for b in badj.buckets:
-            sl = slice(b.offset, b.offset + b.in_nb.shape[0])
-            bucket_or_level(f, fmask, b.in_nb, frontier, visited, fr_mask,
-                            sums[:1], seeds=f[sl], seeds_mask=fmask[sl],
-                            rows=core.slot_rows[sl])
-        del f, fmask
-        for lvl in range(1, depth):
-            nxt, nxt_mask = core_arrays(dev)
-            for b in core.buckets:
-                sl = slice(b.offset, b.offset + b.in_nb.shape[0])
-                bucket_or_level(frontier, fr_mask, b.in_nb, nxt[sl],
-                                visited[sl], nxt_mask[sl],
-                                sums[lvl:lvl + 1])
-            frontier, fr_mask = nxt, nxt_mask
-        return sums % (1 << 32), frontier[:, :1]
+        with stage("digest"):
+            dev = seed_slots.device
+            with stage("digest.seed"):
+                q = torch.arange(n_queries, device=dev)
+                bit = word_bits(dev)[q % 32]
+                word = q // 32
+                f = torch.zeros((N + 1, W), dtype=torch.int32, device=dev)
+                # ADD equals OR: uid_lists_to_seed_slots made (query,
+                # slot) pairs unique, and int32 addition of 1 << 31 wraps
+                # to its bits
+                f.index_put_((seed_slots.reshape(-1).long(),
+                              word.repeat_interleave(n_seeds)),
+                             bit.repeat_interleave(n_seeds), accumulate=True)
+                f[N].zero_()                  # dummy slot absorbs padding
+                fmask = seed_masks(seed_slots, N + 1, W)
+                sums = torch.zeros(max(depth, 1), dtype=torch.int64,
+                                   device=dev)
+            with stage("digest.level1"):
+                frontier, fr_mask = core_arrays(dev)
+                visited = torch.empty_like(frontier)
+                visited[ncov].zero_()
+                for b in badj.buckets:
+                    sl = slice(b.offset, b.offset + b.in_nb.shape[0])
+                    bucket_or_level(f, fmask, b.in_nb, frontier, visited,
+                                    fr_mask, sums[:1], seeds=f[sl],
+                                    seeds_mask=fmask[sl],
+                                    rows=core.slot_rows[sl])
+            del f, fmask
+            for lvl in range(1, depth):
+                with stage("digest.core", level=lvl):
+                    nxt, nxt_mask = core_arrays(dev)
+                    for b in core.buckets:
+                        sl = slice(b.offset, b.offset + b.in_nb.shape[0])
+                        bucket_or_level(frontier, fr_mask, b.in_nb, nxt[sl],
+                                        visited[sl], nxt_mask[sl],
+                                        sums[lvl:lvl + 1])
+                frontier, fr_mask = nxt, nxt_mask
+            return sums % (1 << 32), frontier[:, :1]
 
     return digest
 

@@ -36,6 +36,7 @@ import torch
 
 from dgraph_tpu_torch import backend
 from dgraph_tpu_torch.ops.kernels import score_dot
+from dgraph_tpu_torch.utils.tracing import stage
 
 METRICS = ("cosine", "dot", "euclidean")
 
@@ -173,7 +174,13 @@ def _score_device(corpus: torch.Tensor, queries: torch.Tensor,
                   metric: str) -> torch.Tensor:
     """(b, n) float32 scores of `metric`: the dots from the kernel, then
     the reference's epilogue in the same operation order."""
-    dots = score_dot(corpus, queries)
+    return _epilogue(score_dot(corpus, queries), corpus, queries, metric)
+
+
+def _epilogue(dots: torch.Tensor, corpus: torch.Tensor,
+              queries: torch.Tensor, metric: str) -> torch.Tensor:
+    """`metric`'s scores from the (b, n) dots, in the reference's
+    operation order."""
     if metric == "dot":
         return dots
     if metric == "cosine":
@@ -284,44 +291,52 @@ def topk_device(corpus_dev, queries: np.ndarray, k: int,
     two_stage=True falls back to exact where it cannot."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
-    if isinstance(corpus_dev, torch.Tensor):
-        dev = corpus_dev.device if device is None else \
-            backend.resolve_device(device)
-        corpus_t = corpus_dev.to(dev, torch.float32).contiguous()
-    else:
-        dev = backend.resolve_device(device)
-        corpus_t = torch.from_numpy(
-            np.ascontiguousarray(corpus_dev, np.float32)).to(dev)
-    n_rows = corpus_t.shape[0]
-    n = n_rows if n_real is None else int(n_real)
-    q = torch.from_numpy(np.ascontiguousarray(
-        np.atleast_2d(np.asarray(queries, np.float32)))).to(dev)
-    n_pad = max(BUCKET_SIZE,
-                ((n_rows + BUCKET_SIZE - 1) // BUCKET_SIZE) * BUCKET_SIZE)
-    plan = plan_two_stage(n, k)
-    if two_stage is None:
-        two_stage = plan > 0
-    elif two_stage and plan == 0:
-        two_stage = False  # the bucket count can't hold the recall target
-    if l_per_bucket is None:
-        l_per_bucket = max(plan, 1)
+    with stage("knn"):
+        with stage("knn.upload"):
+            if isinstance(corpus_dev, torch.Tensor):
+                dev = corpus_dev.device if device is None else \
+                    backend.resolve_device(device)
+                corpus_t = corpus_dev.to(dev, torch.float32).contiguous()
+            else:
+                dev = backend.resolve_device(device)
+                corpus_t = torch.from_numpy(
+                    np.ascontiguousarray(corpus_dev, np.float32)).to(dev)
+            n_rows = corpus_t.shape[0]
+            n = n_rows if n_real is None else int(n_real)
+            q = torch.from_numpy(np.ascontiguousarray(
+                np.atleast_2d(np.asarray(queries, np.float32)))).to(dev)
+        n_pad = max(BUCKET_SIZE,
+                    ((n_rows + BUCKET_SIZE - 1) // BUCKET_SIZE) * BUCKET_SIZE)
+        plan = plan_two_stage(n, k)
+        if two_stage is None:
+            two_stage = plan > 0
+        elif two_stage and plan == 0:
+            two_stage = False  # the bucket count can't hold the recall target
+        if l_per_bucket is None:
+            l_per_bucket = max(plan, 1)
 
-    scores = _score_device(corpus_t, q, metric)
-    if n_pad != n_rows:
-        scores = torch.nn.functional.pad(scores, (0, n_pad - n_rows),
-                                         value=-math.inf)
-    invalid = torch.arange(n_pad, device=dev) >= n
-    if mask is not None:
-        m = np.zeros(n_pad, bool)
-        m[:n] = np.asarray(mask, bool)
-        invalid |= ~torch.from_numpy(m).to(dev)
-    # in place: the scores are this call's own tensor
-    scores.masked_fill_(invalid[None, :], -math.inf)
-    if two_stage:
-        vals, idx = _two_stage_topk_dev(scores, int(k), int(l_per_bucket))
-    else:
-        vals, idx = _topk_ordered(scores, min(int(k), n_pad))
-    return idx.cpu().numpy(), vals.cpu().numpy()
+        with stage("knn.score"):
+            dots = score_dot(corpus_t, q)
+        with stage("knn.epilogue"):
+            scores = _epilogue(dots, corpus_t, q, metric)
+            if n_pad != n_rows:
+                scores = torch.nn.functional.pad(
+                    scores, (0, n_pad - n_rows), value=-math.inf)
+            invalid = torch.arange(n_pad, device=dev) >= n
+            if mask is not None:
+                m = np.zeros(n_pad, bool)
+                m[:n] = np.asarray(mask, bool)
+                invalid |= ~torch.from_numpy(m).to(dev)
+            # in place: the scores are this call's own tensor
+            scores.masked_fill_(invalid[None, :], -math.inf)
+        with stage("knn.select"):
+            if two_stage:
+                vals, idx = _two_stage_topk_dev(scores, int(k),
+                                                int(l_per_bucket))
+            else:
+                vals, idx = _topk_ordered(scores, min(int(k), n_pad))
+        with stage("knn.fetch"):
+            return idx.cpu().numpy(), vals.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

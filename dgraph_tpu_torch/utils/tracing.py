@@ -29,6 +29,22 @@ Spans are cheap (two clock reads + an 8-byte id + a deque append under
 GIL; budget < 5 µs each, enforced by bench_micro.py --span-overhead
 and tier-1) and on by default; the ring bounds memory. `set_enabled`
 turns recording off entirely for benchmarking the overhead itself.
+
+- `stage(name, **attrs)` is the hot-path form of a span, for the device
+  layers (`ops/bitgraph`'s digest, `ops/knn.topk_device`). It is off by
+  default, and off it returns one shared no-op context manager: a flag
+  read, no clock, no id, no contextvar, no observer. `record_stages(True)`
+  turns it on; each stage then appends a record to a list that grows
+  until `take_stages()` takes it (not the span ring, which a window of
+  calls would overflow). Both ends come from `time.time_ns()`, the
+  clock `torch.profiler` stamps its events with, and a record carries
+  its thread's `threading.get_ident()` (pthread_self, whose low 32 bits
+  CUPTI stamps on the runtime calls a thread makes), so a device trace's
+  kernels can be paired with the stage whose host interval launched
+  them. Stages nest with spans: a stage's parent is the enclosing stage
+  or span, and it joins the request's trace.
+
+Span and stage names share `SPAN_NAMES`.
 """
 
 from __future__ import annotations
@@ -78,11 +94,21 @@ SPAN_NAMES = (
     "block",
     "commit",
     "device.tile_load",
+    "digest",
+    "digest.core",
+    "digest.level1",
+    "digest.seed",
     "encode",
     "eq",
     "execute",
     "expand",
     "ineq",
+    "knn",
+    "knn.epilogue",
+    "knn.fetch",
+    "knn.score",
+    "knn.select",
+    "knn.upload",
     "match",
     "mutate",
     "parse",
@@ -208,11 +234,14 @@ def span(name: str, **attrs: Any) -> Iterator[dict]:
         trace_id, parent = sid, ""  # self-rooted trace
     else:
         trace_id, parent = cur
-    # wall clock: chrome://tracing renders these as absolute instants.
+    # the start on the wall clock in ns, the clock torch.profiler's
+    # events carry, so a ring span lines up with a device trace (and
+    # chrome://tracing renders it as an absolute instant); the length on
+    # the monotonic clock, which the cost store's buckets and maxima read.
     # `attrs` is the call's own fresh kwargs dict — no defensive copy
     rec = {"name": name, "trace_id": trace_id, "span_id": sid,
            "parent_id": parent, "node": _NODE_CV.get() or _NODE,
-           "ts_us": time.time() * 1e6,  # dglint: disable=DG06
+           "ts_us": time.time_ns() / 1e3,  # dglint: disable=DG06
            "tid": threading.get_ident(), "args": attrs}
     tok = _CUR.set((trace_id, sid))
     t0 = time.perf_counter_ns()
@@ -230,6 +259,89 @@ def span(name: str, **attrs: Any) -> Iterator[dict]:
                     fn(rec)
                 except Exception:
                     remove_span_observer(fn)
+
+
+# ------------------------------------------------------------------ stages
+
+_stages_on = False
+_stage_recs: list = []
+
+
+class _NoStage:
+    """The one context manager `stage()` returns while recording is off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_STAGE = _NoStage()
+
+
+class _Stage:
+    """One recorded stage: its record is appended when it closes."""
+
+    __slots__ = ("rec", "tok")
+
+    def __init__(self, name: str, attrs: dict):
+        self.rec = {"name": name, "args": attrs}
+
+    def __enter__(self) -> None:
+        rec = self.rec
+        cur = _CUR.get()
+        sid = new_span_id()
+        rec["trace_id"], rec["parent_id"] = (sid, "") if cur is None else cur
+        rec["span_id"] = sid
+        rec["tid"] = threading.get_ident()
+        self.tok = _CUR.set((rec["trace_id"], sid))
+        rec["t0_ns"] = time.time_ns()  # dglint: disable=DG06
+
+    def __exit__(self, *exc) -> bool:
+        rec = self.rec
+        rec["t1_ns"] = time.time_ns()  # dglint: disable=DG06
+        _CUR.reset(self.tok)
+        _stage_recs.append(rec)
+        return False
+
+
+def stage(name: str, **attrs: Any):
+    """A stage of a device layer's call: a no-op unless `record_stages`
+    is on, then a record of `name`, both ends on `time.time_ns()`, the
+    thread, the enclosing stage or span as parent, the trace and
+    `attrs`. Used as `with stage("knn.score"): ...`."""
+    if not _stages_on:
+        return _NO_STAGE
+    return _Stage(name, attrs)
+
+
+def record_stages(on: bool) -> None:
+    """Turn stage recording on (dropping records not taken) or off
+    (keeping them for `take_stages`)."""
+    global _stages_on
+    if on:
+        del _stage_recs[:]
+    _stages_on = bool(on)
+
+
+def take_stages() -> list[dict]:
+    """The stage records since recording was turned on, in the order
+    they closed, removed from the list."""
+    out = _stage_recs[:]
+    # remove only what was copied: a stage closing meanwhile stays
+    del _stage_recs[:len(out)]
+    return out
+
+
+def stage_events(stages: list[dict], base_ns: int = 0) -> list[dict]:
+    """Stage records -> Chrome trace-event JSON: 'X' events in
+    microseconds from `base_ns` on the profiler's clock."""
+    return chrome_events([dict(r, ts_us=(r["t0_ns"] - base_ns) / 1e3,
+                               dur_us=(r["t1_ns"] - r["t0_ns"]) / 1e3)
+                          for r in stages])
 
 
 # ------------------------------------------------------- W3C traceparent
@@ -350,7 +462,11 @@ def profile_device(log_dir: str) -> Iterator[None]:
     """Capture a torch.profiler trace (host ops, and the card's kernels
     and copies where a card is present) of everything run inside the
     block, written as a Chrome trace to `log_dir`/trace.json: load it in
-    chrome://tracing or Perfetto."""
+    chrome://tracing or Perfetto. Stages are recorded for the block and
+    written beside it as `log_dir`/stages.json, counted from the same
+    base (`baseTimeNanoseconds`) on the same clock."""
+    import json
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,6 +474,24 @@ def profile_device(log_dir: str) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    # inside an outer recording, leave its records and its switch alone
+    was_on = _stages_on
+    first = len(_stage_recs) if was_on else 0
+    if not was_on:
+        record_stages(True)
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        stages = _stage_recs[first:]
+        if not was_on:
+            record_stages(False)
+            del _stage_recs[:]
+    trace_path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(trace_path)
+    # the profiler's trace counts from its own base; the stages share it
+    with open(trace_path) as f:
+        base = int(json.load(f).get("baseTimeNanoseconds", 0))
+    with open(os.path.join(log_dir, "stages.json"), "w") as f:
+        json.dump({"baseTimeNanoseconds": base,
+                   "traceEvents": stage_events(stages, base)}, f)

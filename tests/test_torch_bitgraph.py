@@ -536,3 +536,38 @@ def test_slice_end_to_end():
     assert jsums.tolist() == [sum(len(lv[i]) for lv in levels)
                               for i in range(depth)]
     assert tbench.fit_batch(own, own_core, B, torch.device(CPU)) == B
+
+
+def _staged(fn):
+    """fn() with stage recording on: (its result, the stage records)."""
+    from dgraph_tpu_torch.utils import tracing
+    tracing.record_stages(True)
+    try:
+        out = fn()
+    finally:
+        tracing.record_stages(False)
+    return out, tracing.take_stages()
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_digest_stages(depth):
+    """Each digest records its stages (the seed, level 1, one a deeper
+    level, inside the whole call), and answers alike with them on."""
+    edges, _, tb = both("zipf_hub")
+    tc = tbg.build_core_adjacency(tb)
+    seeds = seed_lists(edges, 50, 4, seed=11)
+    slots = torch.from_numpy(tbg.uid_lists_to_seed_slots(tb, seeds, 4))
+    fn = tbg.make_bfs_digest_batched(tb, tc, depth, 50, 4)
+    plain = fn(slots)
+    staged, recs = _staged(lambda: fn(slots))
+    for a, b in zip(plain, staged):
+        assert torch.equal(a, b)
+    assert [r["name"] for r in recs] == \
+        ["digest.seed", "digest.level1"] + ["digest.core"] * (depth - 1) \
+        + ["digest"]
+    root = recs[-1]
+    assert all(r["parent_id"] == root["span_id"] for r in recs[:-1])
+    assert [r["args"] for r in recs if r["name"] == "digest.core"] == \
+        [{"level": lvl} for lvl in range(1, depth)]
+    starts = [r["t0_ns"] for r in recs[:-1]]
+    assert starts == sorted(starts)

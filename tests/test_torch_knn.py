@@ -177,3 +177,36 @@ def test_topk_device_defaults_to_card(monkeypatch):
     corpus, q = corpus_and_queries()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tknn.topk_device(corpus, q, 3)
+
+
+@pytest.mark.parametrize("tier", [True, False])
+def test_topk_device_stages(tier):
+    """Each call records `knn` and its five stages in order, on the
+    two-stage route and on the exact one, and answers alike with them
+    on."""
+    from dgraph_tpu_torch.utils import tracing
+    corpus, q = corpus_and_queries()
+    mask = np.ones(N, bool)
+    mask[::7] = False
+
+    k = 2                       # small enough for two buckets' winners
+    assert tknn.plan_two_stage(N, k) > 0
+
+    def call():
+        return tknn.topk_device(corpus, q, k, "euclidean", mask=mask,
+                                two_stage=tier, device=CPU)
+
+    plain = call()
+    tracing.record_stages(True)
+    try:
+        staged = call()
+    finally:
+        tracing.record_stages(False)
+    recs = tracing.take_stages()
+    for a, b in zip(plain, staged):
+        np.testing.assert_array_equal(a, b)
+    assert [r["name"] for r in recs] == [
+        "knn.upload", "knn.score", "knn.epilogue", "knn.select",
+        "knn.fetch", "knn"]
+    assert all(r["parent_id"] == recs[-1]["span_id"] for r in recs[:-1])
+    assert all(a["t1_ns"] <= b["t0_ns"] for a, b in zip(recs, recs[1:-1]))
