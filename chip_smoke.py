@@ -76,14 +76,22 @@ regime: 1M x 128 float32, batch 256, k 10, cosine, TF32 off:
    list slices; score_int8_lists against its plain version on
    hand-built tables (empty, a one-row list, m = 1, m = M_TILE + 1,
    lists at both ends of the code block, a mixed batch), and an entry
-   of M_TILE + 1 queries refused;
+   of M_TILE + 1 queries refused; score_metric (score_dot's kernel
+   storing the metric's score) for each metric at METRIC_CHECK_SHAPES
+   over b {1, crossover, crossover + 1, 257}, with and without a mask,
+   against score_metric_reference score by score within
+   `kernels.score_metric_bound` and -inf bit for bit in every cleared
+   and padding column (`check_metric`, which every kernels-line entry of
+   score_metric below runs on its path's recorded call);
 9. the exact and two-stage tiers of `knn.topk_device` over a
-   device-resident block: sustained QPS with score_dot's launches set to
-   0 just before and asserted after (one per call); the exact top-10
+   device-resident block: sustained QPS with the launch counts set to
+   0 just before and asserted after (one score_metric a call, nothing
+   else); the exact top-10
    against the same call with the plain version and, for 16 queries,
    the float64 oracle (rounding flips printed with their gap); two-stage
-   recall@10 >= 0.99; `score_dot` alone beside its plain version,
-   torch.matmul and its bound; then at the exact tier's shapes (one
+   recall@10 >= 0.99; the exact tier's score_metric call, and the same
+   with a keep mask, replayed beside the plain version, torch.matmul and
+   its bound; then score_dot at the exact tier's shapes (one
    query over 262,144, 131,072, 65,536 and 16,384 rows, 256 over
    250,000 and 1M) on the plan's route and the other, beside the plain version,
    torch.matmul and the bound, and both routes over the batch at 262,144
@@ -214,14 +222,15 @@ are counted):
    23), one request per query of phase 23: the quantized tier launches
    score_int8_lists once a request and nothing else, recall@10 >= 0.95
    against exact_topk_blocked, equal to the plain score_int8_lists; the
-   exact device tier (`vec_quantized=False`) launches score_dot once a
-   request, equal to the plain score_dot, its scores within rounding of
-   float64 and its recall against knn.topk_host at least the two-stage
-   target; `@filter(similar_to)` over `has(embedding)` takes the exact
-   tier (score_dot once); p50 and p99 latency of each tier; each
-   kernel's device time at a request's shape, and beside score_dot the
-   rest of an exact request's device work (the corpus norms, the cosine
-   epilogue, padding and mask, `_topk_ordered`);
+   exact device tier (`vec_quantized=False`) launches score_metric once
+   a request, equal to the plain score_metric, its scores within
+   rounding of float64 and its recall against knn.topk_host at least the
+   two-stage target; `@filter(similar_to)` over `has(embedding)` takes
+   the exact tier (score_metric once); p50 and p99 latency of each tier;
+   each kernel's device time at a request's recorded call (the exact
+   and the filtered request's score_metric each), and beside
+   score_metric the rest of an exact request's device work
+   (`_topk_ordered`);
 30. pack algebra: LABEL_NODES fresh nodes with `label: string
    @index(term)` (words w0-w3 with probabilities 1/2, 1/2, 1/4, 1/4),
    bulk-loaded into the engine; every word's pack
@@ -255,8 +264,8 @@ state it reuses:
    sets, with and without page (0, 10): counts and pages equal to a
    numpy oracle of dense masks over the CSR;
 35. in the vector plane after phase 10: `sharded_topk` over 4 shards of
-   phase 9's corpus launches score_dot 4 times a call, its top-10 equal
-   to the same call with the plain score_dot and to the exact tier
+   phase 9's corpus launches score_metric 4 times a call, its top-10
+   equal to the same call with the plain score_metric and to the exact tier
    (flips within the bound), a keep mask too; `sharded_ivf_topk` on
    phase 10's index launches score_int8_lists 4 times a call, its ids
    and scores equal to `ivf.search`'s, with and without a keep mask;
@@ -270,7 +279,7 @@ state it reuses:
    goldens and phase 31's @recurse equal to the single-device engine,
    similar_to on the sharded_quantized tier (one score_int8_lists launch
    a shard whose slot range meets a probed list, answers equal to phase
-   29's) and the sharded tier (4 score_dot launches a request), p50 and
+   29's) and the sharded tier (4 score_metric launches a request), p50 and
    p99 of each.
 
 The cold plane (cold storage and ingest), after phase 36 on the write
@@ -290,7 +299,7 @@ order 37, 38, 39, 42, 40, 41:
    evictions;
 39. reopened with the static planner and the default budget: phase 29's 256 similar_to requests
    on the quantized tier (one score_int8_lists launch a request, the
-   index from the store) and the exact tier (one score_dot launch),
+   index from the store) and the exact tier (one score_metric launch),
    equal to phase 29's answers; the vector tablet offloaded
    (memory_allocated before and after) and asked again alike;
    allofterms over the lazily loaded labels equal to phase 30's, one
@@ -319,7 +328,7 @@ plane's engine on the card:
    `query_json()`;
 44. similar_to over HTTP, SERVE_SIMILAR requests on the quantized and
    the exact tier and SERVE_AND dense allofterms, one at a time: one
-   score_int8_lists, score_dot or bitmap_and launch a request and no
+   score_int8_lists, score_metric or bitmap_and launch a request and no
    other kernel, answers equal to the same queries in process and to
    phases 29-30; each kernel at a served request's shapes against its
    plain version, bound and library call;
@@ -351,7 +360,7 @@ end):
 49. through `cluster.client.ClusterClient`: the 75 goldens on the leader
    and on a follower, each equal to phase 28's; CLUSTER_SIMILAR
    similar_to requests a tier and CLUSTER_AND dense allofterms, one
-   score_int8_lists, score_dot or bitmap_and launch a request and
+   score_int8_lists, score_metric or bitmap_and launch a request and
    answers equal to phases 29-30's, each kernel at those shapes beside
    its plain version, bound and library call; BANK_TRANSFERS upsert
    transfers from BANK_CLIENTS clients through Raft, every acknowledged
@@ -497,6 +506,12 @@ DOT_CHECK_SHAPES = [(d, n) for d in (16, 100, 128)
 # exact tier's shape when the write plane held that many embeddings),
 # 65,536 (WRITE_VECS) and 16,384 (its sharded tier's shard);
 # sharded_topk's shard and the bench batch
+# score_metric's checks (d, n, floats the corpus starts past 16 bytes):
+# 16-byte rows, rows off 16 bytes (100), a corpus off 16 bytes, and depths
+# past the tile route's segment and the row route's at 32 queries a pass
+# (1,024) and at one (8,195)
+METRIC_CHECK_SHAPES = ((128, 65_536, 0), (100, 777, 0), (128, 65_536, 1),
+                       (1024, 65_536, 0), (8195, 777, 0))
 DOT_ROUTE_SHAPES = ((1, 262_144, 128), (1, 131_072, 128), (1, 65_536, 128),
                     (1, 16_384, 128), (256, 250_000, 128),
                     (256, 1_000_000, 128))
@@ -516,6 +531,11 @@ PER_LIST_LOOP_MS = 7.423
 # the L2 and outlast the host work of the slowest timed wrapper
 # (score_int8_lists builds and pins its table before it launches)
 COLD_FILLS = 4
+# -inf's float32 bits, which score_metric stores in a cleared column
+NEG_INF_BITS = int(np.float32(-np.inf).view(np.int32))
+# the launches of the exact device tier, which similar_to scores by its
+# default metric, cosine
+EXACT_LAUNCH = "score_metric.cosine"
 # phase 55: close-under-load rounds, and the predicates and rows a
 # round's engine holds (a decode of 4,000 rows takes milliseconds)
 LIFE_ROUNDS = 20
@@ -1974,21 +1994,17 @@ def probed_lists(ivf, ix, qs, nprobe, metric) -> np.ndarray:
     return ivf._probe(q_t, ix.centroids_dev, nprobe, metric)[1].cpu().numpy()
 
 
-def mesh_kernel_entries(kernels, dev, card, label, path, dot_call,
-                        dot_launches, lists_call, lists_launches
+def mesh_kernel_entries(kernels, dev, card, label, path, metric_call_,
+                        metric_launches, lists_call, lists_launches
                         ) -> list[dict]:
-    """The kernels line's entries of score_dot and score_int8_lists on a
-    sharded path, timed at one shard's launch (`dot_call`: (rows,
-    queries); `lists_call`: (codes, queries, table, out, kw))."""
+    """The kernels line's entries of score_metric and score_int8_lists on
+    a sharded path, timed at one shard's recorded launch (`metric_call_`:
+    score_metric's (args, kw); `lists_call`: (codes, queries, table, out,
+    kw))."""
     flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
-    rows, qv = dot_call
-    dot_ms = device_ms_cold(lambda: kernels.score_dot(rows, qv), 20, flush)
-    dot_plain = device_ms_cold(
-        lambda: kernels.score_dot_reference(rows, qv), 20, flush)
-    lib_ms = device_ms_cold(lambda: torch.matmul(qv, rows.T), 20, flush)
-    derr, dratio = check_score(kernels.score_dot, kernels.score_dot_reference,
-                               rows, qv, f"score_dot, {label}")
-    dot_bound, dot_by = score_bound_ms([(rows, qv)])
+    entry, text = metric_entry(
+        kernels, metric_call_, flush, label, metric_launches,
+        f"{path[0]} ({MESH_SHARDS} logical shards on one card)")
     codes, qs, table, out, kw = lists_call
     int8_ms = device_ms_cold(lambda: kernels.score_int8_lists(
         codes, qs, table, out, **kw), 20, flush)
@@ -1999,22 +2015,13 @@ def mesh_kernel_entries(kernels, dev, card, label, path, dot_call,
                                       f"score_int8_lists, {label}")
     int8_bound, int8_by = lists_bound_ms(codes, qs, table)
     del flush
-    log(f"  {label}, one shard's launches: score_dot ({qv.shape[0]} x "
-        f"{rows.shape[0]} x {rows.shape[1]}, worst error/bound "
-        f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f} ms, "
-        f"torch.matmul {lib_ms:.4f} ms, bound {dot_bound:.4f} ms ({dot_by}); "
-        f"score_int8_lists ({len(table)} entries, worst error/bound "
-        f"{iratio:.4g}) {int8_ms:.4f} ms, plain {int8_plain:.4f} ms, bound "
+    log(f"  {label}, one shard's launches: {text}; score_int8_lists "
+        f"({len(table)} entries, worst error/bound {iratio:.4g}) "
+        f"{int8_ms:.4f} ms, plain {int8_plain:.4f} ms, bound "
         f"{int8_bound:.4f} ms ({int8_by}) (device times from a flushed L2, "
         f"CUDA events) | {card}")
     return [
-        {"name": "score_dot", "route": "cuda",
-         "source": "dgraph_tpu_torch/csrc/score.cu",
-         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123",
-         "path": f"{path[0]} ({MESH_SHARDS} logical shards on one card)",
-         "launches": dot_launches, "max_abs_err": derr, "ms": dot_ms,
-         "plain_ms": dot_plain, "bound_ms": dot_bound, "bound_by": dot_by,
-         "library_ms": lib_ms},
+        entry,
         {"name": "score_int8_lists", "route": "cuda",
          "source": "dgraph_tpu_torch/csrc/score.cu",
          "replaces": "dgraph_tpu/ops/pallas_kernels.py:158",
@@ -2041,18 +2048,32 @@ def mesh_vector_phase(dev, card: str, corpus, queries, exact_idx, ix,
 
     calls = MESH_REPS + 1
     exact()                                             # warm
-    kernels.score_dot.launches = 0
+    reset_launches(kernels)
     for _ in range(calls):
         got_i, _ = exact()
-    dot_launches = kernels.score_dot.launches
-    if dot_launches != MESH_SHARDS * calls:
-        raise AssertionError(f"sharded_topk launched score_dot "
-                             f"{dot_launches} times in {calls} calls")
-    knn.score_dot = kernels.score_dot_reference
+    dot_launches = kernels.score_metric.launches[VEC_METRIC]
+    if launches_of(kernels) != {**dict.fromkeys(launches_of(kernels), 0),
+                                f"score_metric.{VEC_METRIC}":
+                                MESH_SHARDS * calls}:
+        raise AssertionError(f"sharded_topk launched "
+                             f"{launches_of(kernels)} in {calls} calls")
+    # one call's last shard launch, as the path made it
+    last_metric = []
+
+    def recorded_metric(*args, **kw):
+        last_metric[:] = [(args, kw)]
+        return kernels.score_metric(*args, **kw)
+
+    knn.score_metric = recorded_metric
+    try:
+        exact()
+    finally:
+        knn.score_metric = kernels.score_metric
+    knn.score_metric = kernels.score_metric_reference
     try:
         plain_i, _ = exact()
     finally:
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
     p_flips = same_topk("sharded_topk vs plain", got_i, plain_i, corpus,
                         queries, VEC_METRIC, tol)
     e_flips = same_topk("sharded_topk vs the exact tier", got_i, exact_idx,
@@ -2070,9 +2091,9 @@ def mesh_vector_phase(dev, card: str, corpus, queries, exact_idx, ix,
     one_ms = host_ms(lambda: knn.topk_device(
         corpus_dev, queries, VEC_K, VEC_METRIC, two_stage=False), MESH_REPS)
     log(f"sharded_topk over {MESH_SHARDS} shards of {block[0].shape[0]} rows"
-        f" (batch {len(queries)}, k {VEC_K}, {VEC_METRIC}): score_dot launched "
-        f"{dot_launches} times in {calls} calls; top-{VEC_K} = the plain "
-        f"score_dot's ({p_flips} flips) = the exact tier's ({e_flips} "
+        f" (batch {len(queries)}, k {VEC_K}, {VEC_METRIC}): score_metric "
+        f"launched {dot_launches} times in {calls} calls; top-{VEC_K} = the "
+        f"plain score_metric's ({p_flips} flips) = the exact tier's ({e_flips} "
         f"flips), keep mask = the exact tier's ({k_flips} flips), all "
         f"within {tol:.3g}; {sh_ms:.3f} ms a call against the single-device"
         f" exact tier's {one_ms:.3f} ms (host clock after synchronize; "
@@ -2119,12 +2140,11 @@ def mesh_vector_phase(dev, card: str, corpus, queries, exact_idx, ix,
         f"and without a keep mask; {sq_ms:.3f} ms a call against "
         f"ivf.search's {oq_ms:.3f} ms (host clock after synchronize; ratio "
         f"{sq_ms / oq_ms:.2f}) | {card}")
-    q_dev = torch.from_numpy(queries).to(dev)
     entries = mesh_kernel_entries(
         kernels, dev, card, "phase 35", (
             "parallel.dist_knn.sharded_topk",
             "parallel.dist_knn.sharded_ivf_topk"),
-        (block[0], q_dev), dot_launches, tables[-1], int8_launches)
+        last_metric[0], dot_launches, tables[-1], int8_launches)
     log(f"sharded similar_to phase 35: {time.perf_counter() - t_phase:.1f} "
         f"s | {card}")
     return entries
@@ -2298,7 +2318,7 @@ def mesh_engine_phase(dev, card: str, db, golden, state: dict,
     host_idx, _ = knn.topk_host(vecs, queries, SIMILAR_K, VEC_METRIC)
     exact_rows = []
     ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
-    knn.score_dot = recorded(kernels.score_dot, "dot")
+    knn.score_metric = recorded(kernels.score_metric, "metric")
     try:
         for tier, quantized in (("sharded_quantized", True),
                                 ("sharded", False)):
@@ -2313,7 +2333,7 @@ def mesh_engine_phase(dev, card: str, db, golden, state: dict,
                 res = mdb.query(text, explain="analyze" if i == 0 else None)
                 lat[tier].append((time.perf_counter() - t0) * 1e3)
                 only_launched(f"{tier} request {i}", launches_of(kernels),
-                              "score_int8" if quantized else "score_dot",
+                              "score_int8" if quantized else EXACT_LAUNCH,
                               want_l)
                 launched[tier] += want_l
                 full += quantized and want_l == MESH_SHARDS
@@ -2330,7 +2350,7 @@ def mesh_engine_phase(dev, card: str, db, golden, state: dict,
                                        for x in out])
     finally:
         ivf.score_int8_lists = kernels.score_int8_lists
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
         mdb.vec_quantized = True
     flips = same_topk("sharded tier vs float64 topk_host",
                       np.asarray(exact_rows, np.int64), host_idx, vecs,
@@ -2341,21 +2361,20 @@ def mesh_engine_phase(dev, card: str, db, golden, state: dict,
         f"meets a probed list ({launched['sharded_quantized']} in all; "
         f"{full} of {len(lits)} requests on all {MESH_SHARDS} shards), "
         f"answers = the single-device engine's; sharded (vec_quantized="
-        f"False) launched score_dot {MESH_SHARDS} times a request, top-"
+        f"False) launched score_metric {MESH_SHARDS} times a request, top-"
         f"{SIMILAR_K} = float64 topk_host ({flips} flips within {tol:.3g}) "
         f"| {card}")
     for tier, ms in lat.items():
         log(f"  {tier} tier, single request latency (host clock): p50 "
             f"{pct(ms, 50):.3f} ms, p99 {pct(ms, 99):.3f} ms | {card}")
     (codes, qs, table, out), kw = last["int8"]
-    (rows_, qv), _ = last["dot"]
     entries = mesh_kernel_entries(
         kernels, dev, card, "phase 36, a request", (
             "GraphDB(mesh).query -> similar_to sharded tier -> "
             "parallel.dist_knn.sharded_topk",
             "GraphDB(mesh).query -> similar_to sharded_quantized tier -> "
             "parallel.dist_knn.sharded_ivf_topk"),
-        (rows_, qv), launched["sharded"], (codes, qs, table, out, kw),
+        last["metric"], launched["sharded"], (codes, qs, table, out, kw),
         launched["sharded_quantized"])
     del mdb
     log(f"mesh engine phase 36: {time.perf_counter() - t_phase:.1f} s | "
@@ -2478,8 +2497,9 @@ def calibration_steps(ivf, ix) -> int:
 
 def reset_launches(kernels) -> None:
     for fn in (kernels.bucket_or, kernels.bucket_or_level,
-               kernels.score_dot, kernels.score_int8, kernels.bitmap_and):
+               kernels.score_int8, kernels.bitmap_and):
         fn.launches = 0
+    kernels.score_metric.launches = dict.fromkeys(kernels.EPILOGUES, 0)
 
 
 def mixed_round(rng, tablets, n_ops: int) -> list[str]:
@@ -2523,7 +2543,7 @@ def write_plane(dev, card: str) -> list[dict]:
     same engine, phases 48-51, the cluster, on its state, and phases
     37-42, the cold plane, on its export. Returns the kernels line's
     entries of score_int8_lists as rollup drives it, and of
-    score_int8_lists, score_dot and bitmap_and as queries drive them: in
+    score_int8_lists, score_metric and bitmap_and as queries drive them: in
     process, over HTTP, through Raft and through the store."""
     import shutil
 
@@ -2640,9 +2660,8 @@ def write_phases(dev, card: str, work: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         rollup_s = time.perf_counter() - t0
         launches = kernels.score_int8.launches
-        others = {f.__name__: f.launches for f in (
-            kernels.bucket_or, kernels.bucket_or_level,
-            kernels.score_dot, kernels.bitmap_and)}
+        others = {k: v for k, v in kernels.launch_counts().items()
+                  if k != "score_int8"}
     finally:
         ivf.score_int8_lists = kernels.score_int8_lists
         for name, fn in steps_fns.items():
@@ -2994,9 +3013,8 @@ def golden_queries() -> list[tuple[str, str, dict]]:
 
 
 def launches_of(kernels) -> dict:
-    return {f.__name__: f.launches for f in (
-        kernels.bucket_or, kernels.bucket_or_level, kernels.score_dot,
-        kernels.score_int8, kernels.bitmap_and)}
+    """Launches by kernel, score_metric's by metric (`launch_counts`)."""
+    return kernels.launch_counts()
 
 
 def only_launched(label: str, got: dict, name: str, n: int) -> None:
@@ -3028,7 +3046,7 @@ def vector_literal(row) -> str:
 def query_plane(dev, card: str, state: dict) -> list[dict]:
     """Phases 27-31: the query path (`GraphDB.query` over `query/`) on
     the card, on the write plane's engine and state. Returns the kernels
-    line's entries of score_int8_lists, score_dot and bitmap_and as
+    line's entries of score_int8_lists, score_metric and bitmap_and as
     queries drive them."""
     from dgraph_tpu_torch import wire
     from dgraph_tpu_torch.bench import vectors as bv
@@ -3164,18 +3182,19 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
                            for out in got], np.int64)
 
     ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
-    knn.score_dot = recorded(kernels.score_dot, "dot")
     try:
         db.vec_quantized = True
         quant, quant_ms = similar(root_q, "quantized tier", "score_int8")
         db.vec_quantized = False
+        knn.score_metric = recorded(kernels.score_metric, "metric")
         exact_dev, exact_ms = similar(root_q, "exact device tier",
-                                      "score_dot")
+                                      EXACT_LAUNCH)
         db.vec_quantized = True
-        filt, filt_ms = similar(filt_q, "filtered similar_to", "score_dot")
+        knn.score_metric = recorded(kernels.score_metric, "filtered")
+        filt, filt_ms = similar(filt_q, "filtered similar_to", EXACT_LAUNCH)
     finally:
         ivf.score_int8_lists = kernels.score_int8_lists
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
     tol = (WRITE_DIM + 4) * 2.0 ** -24
     q_rows = rows_of(quant)
     rec = bv.recall(exact, q_rows)
@@ -3197,16 +3216,16 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
     if not same_scores:
         raise AssertionError("quantized tier: equal uids, other scores "
                              "than with the plain score_int8_lists")
-    # the exact device tier: the same call with the plain score_dot, and
+    # the exact device tier: the same call with the plain score_metric, and
     # the exact float64 top-k on the host
     e_rows = rows_of(exact_dev)
-    knn.score_dot = kernels.score_dot_reference
+    knn.score_metric = kernels.score_metric_reference
     try:
         db.vec_quantized = False
         dot_plain = [db.query(root_q % (SIMILAR_K, lit))["data"]["q"]
                      for lit in lits]
     finally:
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
         db.vec_quantized = True
     e_flips = same_topk("exact device tier vs plain", e_rows,
                         rows_of(dot_plain), vecs, queries, VEC_METRIC, tol)
@@ -3235,11 +3254,11 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
         f"launch a request and no other kernel, recall@{SIMILAR_K} {rec} "
         f"against exact_topk_blocked, equal to the plain score_int8_lists "
         f"({q_flips} rounding flips, equal scores); exact device tier "
-        f"({tier} top-k) one score_dot launch a request, equal to the "
-        f"plain score_dot ({e_flips} flips), {e_same}/{len(lits)} rows "
+        f"({tier} top-k) one score_metric launch a request, equal to the "
+        f"plain score_metric ({e_flips} flips), {e_same}/{len(lits)} rows "
         f"equal to knn.topk_host's, recall {e_rec}, scores within "
         f"{worst:.3g} of float64 (tolerance {tol:.3g}); @filter("
-        f"similar_to) over has(embedding) one score_dot launch a request, "
+        f"similar_to) over has(embedding) one score_metric launch a request, "
         f"the root exact tier's uids | {card}")
     for name, ms in (("quantized", quant_ms), ("exact device", exact_ms),
                      ("filtered", filt_ms)):
@@ -3264,38 +3283,26 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
         "launches": len(lits), "max_abs_err": err, "ms": int8_ms,
         "plain_ms": int8_plain, "bound_ms": int8_bound,
         "bound_by": int8_by, "library_ms": None})
-    (corpus, qv), kw = last["dot"]
-    dot_ms = device_ms_cold(lambda: kernels.score_dot(corpus, qv), 20, flush)
-    dot_plain = device_ms_cold(
-        lambda: kernels.score_dot_reference(corpus, qv), 20, flush)
-    lib_ms = device_ms_cold(lambda: torch.matmul(qv, corpus.T), 20, flush)
-    derr, dratio = check_score(kernels.score_dot,
-                               kernels.score_dot_reference, corpus, qv,
-                               "score_dot, a similar_to request")
-    dot_bound, dot_by = score_bound_ms([(corpus, qv)])
-    entries.append({
-        "name": "score_dot", "route": "cuda",
-        "source": "dgraph_tpu_torch/csrc/score.cu",
-        "replaces": "dgraph_tpu/ops/pallas_kernels.py:123",
-        "path": "GraphDB.query -> similar_to exact device tier -> "
-                "knn.topk_device",
-        "launches": 2 * len(lits), "max_abs_err": derr, "ms": dot_ms,
-        "plain_ms": dot_plain, "bound_ms": dot_bound, "bound_by": dot_by,
-        "library_ms": lib_ms})
-    rest = exact_rest_ms(knn, corpus, qv, SIMILAR_K, flush)
+    metric_text = []
+    for key, path in (("metric", "GraphDB.query -> similar_to exact device "
+                                 "tier -> knn.topk_device"),
+                      ("filtered", "GraphDB.query -> @filter(similar_to) "
+                                   "exact device tier -> knn.topk_device")):
+        entry, text = metric_entry(kernels, last[key], flush,
+                                   f"a request, {key}", len(lits), path)
+        entries.append(entry)
+        metric_text.append(f"{key}: {text}")
+    rest = exact_rest_ms(knn, kernels, last["metric"], SIMILAR_K, flush)
     del flush
     log(f"  a request's launch at its shapes: score_int8_lists "
         f"({len(table)} entries, worst error/bound {ratio:.4g}) "
         f"{int8_ms:.4f} ms, plain {int8_plain:.4f} ms, bound "
-        f"{int8_bound:.4f} ms ({int8_by}); score_dot ({qv.shape[0]} x "
-        f"{corpus.shape[0]} x {corpus.shape[1]}, worst error/bound "
-        f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f} ms, "
-        f"torch.matmul {lib_ms:.4f} ms, bound {dot_bound:.4f} ms ({dot_by})"
+        f"{int8_bound:.4f} ms ({int8_by}); " + "; ".join(metric_text) +
         f" (device times from a flushed L2, CUDA events) | {card}")
     log(f"  the rest of an exact request's device time at that shape, ms "
         f"(flushed L2, CUDA events): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in rest.items()) + f"; sum "
-        f"{sum(rest.values()):.4f} beside score_dot's {dot_ms:.4f} | {card}")
+            f"{k} {v:.4f}" for k, v in rest.items()) + f" beside "
+        f"score_metric's {entries[-2]['ms']:.4f} | {card}")
 
     # -- 30. pack algebra on the card --------------------------------------
     entries.append(label_phase(db, dev, card, kernels, setops, state))
@@ -3310,37 +3317,14 @@ def query_plane(dev, card: str, state: dict) -> list[dict]:
     return entries
 
 
-def exact_rest_ms(knn, corpus, qv, k: int, flush) -> dict:
-    """Device ms of what an exact cosine request runs on the card beside
-    score_dot (`knn._score_device`, `knn.topk_device`), each from a
-    flushed L2: the corpus norms, which reread the corpus every request;
-    the rest of the cosine epilogue; the padding and the mask; the
-    ordered top-k. Measurement only."""
-    n = corpus.shape[0]
-    n_pad = -(-n // knn.BUCKET_SIZE) * knn.BUCKET_SIZE
-    dots = torch.matmul(qv, corpus.T)
-    cn = torch.sqrt(torch.sum(corpus * corpus, dim=1))
-
-    def cosine():
-        qn = torch.sqrt(torch.sum(qv * qv, dim=1))
-        denom = qn[:, None] * cn[None, :]
-        pos = denom > 0
-        return torch.where(pos, dots / torch.where(pos, denom, 1.0), 0.0)
-
-    def mask():
-        scores = torch.nn.functional.pad(dots, (0, n_pad - n),
-                                         value=-math.inf)
-        invalid = torch.arange(n_pad, device=dots.device) >= n
-        return scores.masked_fill_(invalid[None, :], -math.inf)
-
-    scores = mask()
-    return {
-        "norms": device_ms_cold(
-            lambda: torch.sqrt(torch.sum(corpus * corpus, dim=1)), 20, flush),
-        "cosine epilogue": device_ms_cold(cosine, 20, flush),
-        "padding and mask": device_ms_cold(mask, 20, flush),
-        "_topk_ordered": device_ms_cold(
-            lambda: knn._topk_ordered(scores, k), 20, flush)}
+def exact_rest_ms(knn, kernels, call, k: int, flush) -> dict:
+    """Device ms of what an exact request runs on the card beside its
+    score_metric launch (`call`, as `knn.topk_device` made it), from a
+    flushed L2: the ordered top-k over its scores. Measurement only."""
+    args, kw = call
+    scores = kernels.score_metric(*args, **kw)
+    return {"_topk_ordered": device_ms_cold(
+        lambda: knn._topk_ordered(scores, k), 20, flush)}
 
 
 def label_phase(db, dev, card: str, kernels, setops, state: dict) -> dict:
@@ -3593,7 +3577,7 @@ def serving_plane(dev, card: str, state: dict) -> list[dict]:
     plane's engine (its goldens at scale 10, embeddings and labels)
     over HTTP and gRPC, and a CLI `alpha` child serving its own engine
     on the card. Returns the kernels line's entries of score_int8_lists,
-    score_dot and bitmap_and as served requests drive them."""
+    score_metric and bitmap_and as served requests drive them."""
     from dgraph_tpu_torch.ops import kernels
     from dgraph_tpu_torch.server.http import serve
 
@@ -3686,12 +3670,12 @@ def serving_kernels(db, dev, base: str, card: str, state: dict,
 
     lat = {}
     ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
-    knn.score_dot = recorded(kernels.score_dot, "dot")
+    knn.score_metric = recorded(kernels.score_metric, "metric")
     setops.bitmap_and_device = recorded_and
     quantized = db.vec_quantized
     try:
         for tier, name, key in (("quantized", "score_int8", "quant"),
-                                ("exact", "score_dot", "exact")):
+                                ("exact", EXACT_LAUNCH, "exact")):
             db.vec_quantized = tier == "quantized"
             lat[tier] = []
             for i, lit in enumerate(lits):
@@ -3725,11 +3709,11 @@ def serving_kernels(db, dev, base: str, card: str, state: dict,
     finally:
         db.vec_quantized = quantized
         ivf.score_int8_lists = kernels.score_int8_lists
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
         setops.bitmap_and_device = and_device
     log(f"serving: {len(lits)} similar_to requests a tier and {SERVE_AND} "
         f"allofterms(label, \"{words}\") over HTTP, one at a time: one "
-        f"score_int8_lists (quantized), score_dot (exact) or bitmap_and "
+        f"score_int8_lists (quantized), score_metric (exact) or bitmap_and "
         f"launch a request and no other kernel, answers equal to the same "
         f"queries in process and to phases 29-30; ms a request (host "
         f"clock): " + "; ".join(f"{k} p50 {pct(v, 50):.3f} p99 "
@@ -3737,7 +3721,7 @@ def serving_kernels(db, dev, base: str, card: str, state: dict,
         + f" | {card}")
 
     return path_kernel_entries(
-        dev, card, last, {"score_int8": len(lits), "score_dot": len(lits),
+        dev, card, last, {"score_int8": len(lits), "score_metric": len(lits),
                           "bitmap_and": SERVE_AND},
         "serving", "a served request (POST /query -> "
         "AlphaServer.handle_query_json)")
@@ -4087,7 +4071,7 @@ def cluster_plane(dev, card: str, state: dict) -> list[dict]:
     `zero`, `topology`, `federated`, `bench/spawn`, `node` and
     `rebalance` on the CLI) on the card, booted from the write plane's
     engine's state, in build/cluster/ (removed at the end). Returns the
-    kernels line's entries of score_int8_lists, score_dot and
+    kernels line's entries of score_int8_lists, score_metric and
     bitmap_and as requests through Raft's leader drive them."""
     import gc
     import shutil
@@ -4266,11 +4250,11 @@ def cluster_kernels(dev, card: str, state: dict, srvs: list, client,
 
     lat = {}
     ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
-    knn.score_dot = recorded(kernels.score_dot, "dot")
+    knn.score_metric = recorded(kernels.score_metric, "metric")
     setops.bitmap_and_device = recorded_and
     try:
         for tier, name, key in (("quantized", "score_int8", "quant"),
-                                ("exact", "score_dot", "exact")):
+                                ("exact", EXACT_LAUNCH, "exact")):
             for s in srvs:
                 s.db.vec_quantized = tier == "quantized"
             lat[tier] = []
@@ -4303,18 +4287,18 @@ def cluster_kernels(dev, card: str, state: dict, srvs: list, client,
         for s in srvs:
             s.db.vec_quantized = True
         ivf.score_int8_lists = kernels.score_int8_lists
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
         setops.bitmap_and_device = and_device
     log(f"cluster: {len(lits)} similar_to requests a tier and "
         f"{CLUSTER_AND} allofterms(label, \"{words}\") through the "
         f"leader, one at a time: one score_int8_lists (quantized), "
-        f"score_dot (exact) or bitmap_and launch a request and no other "
+        f"score_metric (exact) or bitmap_and launch a request and no other "
         f"kernel, answers equal to phases 29-30's; ms a request (host "
         f"clock): " + "; ".join(f"{k} p50 {pct(v, 50):.3f} p99 "
                                 f"{pct(v, 99):.3f}" for k, v in lat.items())
         + f" | {card}")
     return path_kernel_entries(
-        dev, card, last, {"score_int8": len(lits), "score_dot": len(lits),
+        dev, card, last, {"score_int8": len(lits), "score_metric": len(lits),
                           "bitmap_and": CLUSTER_AND},
         "cluster", "a request through Raft's leader (ClusterClient.query "
         "-> cluster AlphaServer -> GraphDB.query)")
@@ -4744,7 +4728,7 @@ def cold_plane(dev, card: str, state: dict) -> list[dict]:
     the write plane's engine exported and bulk-loaded into a store under
     build/cold_plane/ (removed at the end). Phase 42 backs up the store
     engine of phase 39, so it runs before 40 and 41. Returns the kernels
-    line's entries of score_int8_lists, score_dot and bitmap_and as the
+    line's entries of score_int8_lists, score_metric and bitmap_and as the
     store-backed engines drive them."""
     import shutil
 
@@ -4984,13 +4968,13 @@ def cold_kernels(dev, card: str, state: dict, cold: dict):
         db.vec_quantized = True
         return ms
 
-    launches = {"score_int8": 0, "score_dot": 0, "bitmap_and": 0}
+    launches = {"score_int8": 0, "score_metric": 0, "bitmap_and": 0}
     ivf.score_int8_lists = recorded(kernels.score_int8_lists, "int8")
-    knn.score_dot = recorded(kernels.score_dot, "dot")
+    knn.score_metric = recorded(kernels.score_metric, "metric")
     try:
         quant_ms = similar("quantized", "score_int8", sim["quant"],
                            "quantized tier from the store")
-        exact_ms = similar("exact", "score_dot", sim["exact"],
+        exact_ms = similar("exact", EXACT_LAUNCH, sim["exact"],
                            "exact tier from the store")
         last.clear()            # the recorded arguments hold the index
         gc.collect()
@@ -5004,7 +4988,7 @@ def cold_kernels(dev, card: str, state: dict, cold: dict):
         mem1 = torch.cuda.memory_allocated(dev)
         again_ms = similar("quantized", "score_int8", sim["quant"],
                            "quantized tier after an offload")
-        similar("exact", "score_dot", sim["exact"],
+        similar("exact", EXACT_LAUNCH, sim["exact"],
                 "exact tier after an offload")
         ix = db.tablets["embedding"].vector_ivf()
         if ix is None or ix.device != dev:
@@ -5013,15 +4997,15 @@ def cold_kernels(dev, card: str, state: dict, cold: dict):
         mem2 = torch.cuda.memory_allocated(dev)
     finally:
         ivf.score_int8_lists = kernels.score_int8_lists
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
     launches["score_int8"] = 2 * len(lits)
-    launches["score_dot"] = 2 * len(lits)
-    cold["int8"], cold["dot"] = last["int8"], last["dot"]
+    launches["score_metric"] = 2 * len(lits)
+    cold["int8"], cold["metric"] = last["int8"], last["metric"]
     log(f"similar_to through the store, {len(lits)} requests a pass, k "
         f"{SIMILAR_K}: the quantized tier one score_int8_lists launch a "
         f"request and no calibration (the index came from the blob), "
         f"p50 {pct(quant_ms, 50):.3f} ms p99 {pct(quant_ms, 99):.3f}; the "
-        f"exact tier one score_dot launch a request, p50 "
+        f"exact tier one score_metric launch a request, p50 "
         f"{pct(exact_ms, 50):.3f} ms; each answer equal to phase 29's; "
         f"offloading the vector tablet moved memory_allocated "
         f"{mem0} -> {mem1} bytes (its index {ix_bytes}); reloaded, both "
@@ -5313,9 +5297,9 @@ def cold_500m(dev, card: str, work: str) -> None:
 def path_kernel_entries(dev, card: str, last: dict, launches: dict,
                         path: str, label: str) -> list[dict]:
     """The kernels line's entries of one path: score_int8_lists,
-    score_dot and bitmap_and, each timed at the path's last recorded
-    call (`last["int8"]`, `last["dot"]`, `last["mats"]`) from a flushed
-    L2 beside its plain version, its bound and the library call;
+    score_metric and bitmap_and, each timed at the path's last recorded
+    call (`last["int8"]`, `last["metric"]`, `last["mats"]`) from a
+    flushed L2 beside its plain version, its bound and the library call;
     `launches` holds each kernel's launches on the path."""
     from dgraph_tpu_torch.ops import kernels
 
@@ -5329,15 +5313,8 @@ def path_kernel_entries(dev, card: str, last: dict, launches: dict,
     int8_err, ratio = lists_within_bound(codes, qs, table, out, plain_out,
                                          kw, f"score_int8_lists, {label}")
     int8_bound, int8_by = lists_bound_ms(codes, qs, table)
-    (corpus, qv), _ = last["dot"]
-    dot_ms = device_ms_cold(lambda: kernels.score_dot(corpus, qv), 20, flush)
-    dot_plain = device_ms_cold(
-        lambda: kernels.score_dot_reference(corpus, qv), 20, flush)
-    dot_lib = device_ms_cold(lambda: torch.matmul(qv, corpus.T), 20, flush)
-    dot_err, dratio = check_score(kernels.score_dot,
-                                  kernels.score_dot_reference, corpus, qv,
-                                  f"score_dot, {label}")
-    dot_bound, dot_by = score_bound_ms([(corpus, qv)])
+    metric, metric_text = metric_entry(kernels, last["metric"], flush, label,
+                                       launches["score_metric"], path)
     words_in, _ = last["mats"]
     mats = torch.from_numpy(np.stack([np.ascontiguousarray(
         m, np.uint64) for m in words_in]).view(np.int64)).to(dev)
@@ -5356,10 +5333,7 @@ def path_kernel_entries(dev, card: str, last: dict, launches: dict,
     log(f"  {label}: the launches at their shapes (device times from a "
         f"flushed L2): score_int8_lists ({len(table)} entries, worst error/"
         f"bound {ratio:.4g}) {int8_ms:.4f} ms, plain {int8_plain:.4f}, bound "
-        f"{int8_bound:.5f} ({int8_by}); score_dot ({qv.shape[0]} x "
-        f"{corpus.shape[0]} x {corpus.shape[1]}, worst error/bound "
-        f"{dratio:.4g}) {dot_ms:.4f} ms, plain {dot_plain:.4f}, torch.matmul "
-        f"{dot_lib:.4f}, bound {dot_bound:.4f} ({dot_by}); bitmap_and (k {k},"
+        f"{int8_bound:.5f} ({int8_by}); {metric_text}; bitmap_and (k {k},"
         f" B {b}, W {w}) {and_ms:.4f} ms, plain {and_plain:.4f}, "
         f"torch.bitwise_and {and_lib:.4f}, bound {and_bound:.5f} (bytes); "
         f"launches {launches} | {card}")
@@ -5370,12 +5344,7 @@ def path_kernel_entries(dev, card: str, last: dict, launches: dict,
          "launches": launches["score_int8"],
          "max_abs_err": int8_err, "ms": int8_ms, "plain_ms": int8_plain,
          "bound_ms": int8_bound, "bound_by": int8_by, "library_ms": None},
-        {"name": "score_dot", "route": "cuda",
-         "source": "dgraph_tpu_torch/csrc/score.cu",
-         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123", "path": path,
-         "launches": launches["score_dot"], "max_abs_err": dot_err,
-         "ms": dot_ms, "plain_ms": dot_plain, "bound_ms": dot_bound,
-         "bound_by": dot_by, "library_ms": dot_lib},
+        metric,
         {"name": "bitmap_and", "route": "cuda",
          "source": "dgraph_tpu_torch/csrc/bitmap_and.cu",
          "replaces": "dgraph_tpu/ops/pallas_kernels.py:217", "path": path,
@@ -5971,6 +5940,100 @@ def score_bound_ms(calls) -> tuple[float, str]:
     return max(by_s, ops_s) * 1e3, "bytes" if by_s >= ops_s else "operations"
 
 
+def metric_bound_ms(corpus, q, n_out: int, mask) -> tuple[float, str]:
+    """Least time of one score_metric call on the card: rows, queries,
+    mask and every output column moved once over the memory rate against
+    2 * b * n * d float32 operations over the float32 peak; (ms, what
+    bounds it)."""
+    nbytes = corpus.numel() * 4 + q.numel() * 4 + 4 * q.shape[0] * n_out + \
+        (0 if mask is None else mask.numel())
+    ops = 2.0 * q.shape[0] * corpus.shape[0] * corpus.shape[1]
+    by_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(by_s, ops_s) * 1e3, "bytes" if by_s >= ops_s else "operations"
+
+
+def metric_call(call) -> tuple:
+    """(corpus, queries, metric, n_live, n_out, mask) of a recorded
+    score_metric call ((args, kw))."""
+    args, kw = call
+    corpus, q, metric, n_live, n_out = args[:5]
+    mask = args[5] if len(args) > 5 else kw.get("mask")
+    return corpus, q, metric, n_live, n_out, mask
+
+
+def check_metric(kernels, call, label: str) -> tuple[float, float]:
+    """A score_metric call ((args, kw), as a path made it) replayed and
+    held against score_metric_reference on the same inputs, element by
+    element: -inf bit for bit in every column the call clears, a finite
+    score within `kernels.score_metric_bound` in every other; written
+    again through `out=` into a slice of a larger buffer whose neighbours
+    must stay. Returns (max abs error, worst error / bound)."""
+    corpus, q, metric, n_live, n_out, mask = metric_call(call)
+    got = kernels.score_metric(corpus, q, metric, n_live, n_out, mask)
+    want = kernels.score_metric_reference(corpus, q, metric, n_live, n_out,
+                                          mask)
+    b = q.shape[0]
+    big = torch.full((b * n_out + 2,), 7.0, device=q.device)
+    kernels.score_metric(corpus, q, metric, n_live, n_out, mask,
+                         out=big[1:-1].view(b, n_out))
+    keep = torch.zeros(n_out, dtype=torch.bool, device=q.device)
+    keep[:n_live] = True if mask is None else mask
+    torch.cuda.synchronize()
+    g, w = got[:, keep].double(), want[:, keep].double()
+    bound = kernels.score_metric_bound(metric, corpus, q)[
+        :, keep[:corpus.shape[0]]]
+    err = (g - w).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    ratio = float((err / bound.clamp_min(1e-300)).max()) \
+        if err.numel() else 0.0
+    cleared = got.view(torch.int32)[:, ~keep]
+    if tuple(got.shape) != (b, n_out) or \
+            not bool((cleared == NEG_INF_BITS).all()) or \
+            not bool(torch.isfinite(g).all()) or \
+            not bool((err <= bound).all()) or \
+            not torch.equal(big[1:-1].view(b, n_out), got) or \
+            float(big[0]) != 7.0 or float(big[-1]) != 7.0:
+        raise AssertionError(f"{label}: score_metric {metric} != plain "
+                             f"version (-inf where cleared, within the "
+                             f"bound elsewhere; worst ratio {ratio:.3g})")
+    return worst, ratio
+
+
+def metric_entry(kernels, call, flush, label: str, launches: int,
+                 path: str | None = None) -> tuple[dict, str]:
+    """The kernels line's entry of score_metric at a path's recorded call
+    (its metric, n_live, n_out and mask as the path gave them): the call
+    replayed against its plain version (check_metric), its device time,
+    the plain version's and torch.matmul's (the dot alone) from a
+    flushed L2, and its bound; and the entry's phrase for the log."""
+    args, kw = call
+    corpus, q, metric, n_live, n_out, mask = metric_call(call)
+    err, ratio = check_metric(kernels, call, label)
+    ms = device_ms_cold(lambda: kernels.score_metric(*args, **kw), 20,
+                        flush)
+    plain = device_ms_cold(
+        lambda: kernels.score_metric_reference(*args, **kw), 20, flush)
+    lib = device_ms_cold(lambda: torch.matmul(q, corpus.T), 20, flush)
+    bound, by = metric_bound_ms(corpus, q, n_out, mask)
+    (n, d), b = corpus.shape, q.shape[0]
+    route = kernels.score_dot_plan(b, d, math.gcd(corpus.data_ptr(), 16))
+    entry = {"name": "score_metric", "route": "cuda",
+             "source": "dgraph_tpu_torch/csrc/score.cu",
+             "replaces": "dgraph_tpu/ops/pallas_kernels.py:123"}
+    if path is not None:
+        entry["path"] = path
+    entry.update({"metric": metric, "launches": launches,
+                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    text = (f"score_metric {metric} ({b} x {n} x {d}, n_live {n_live}, "
+            f"n_out {n_out}, {'a' if mask is not None else 'no'} mask, "
+            f"{'tile' if route.route == kernels.DOT_TILE else 'row'} "
+            f"route, worst error/bound {ratio:.4g}) {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, torch.matmul (the dot alone) {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+    return entry, text
+
+
 def lists_bound_ms(codes, queries, table) -> tuple[float, str]:
     """Least time of a list table's products on the card: each probed
     list's code rows and scales read once, the queries once, the table
@@ -6016,7 +6079,7 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
     code block, and score_int8_lists on hand-built tables. Returns each
     kernel's worst absolute error."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {"dot": (0.0, 0.0), "int8": (0.0, 0.0)}
+    worst = {"dot": (0.0, 0.0), "metric": (0.0, 0.0), "int8": (0.0, 0.0)}
     shapes = 0
 
     def check(key, fn, plain, rows, q, label):
@@ -6061,6 +6124,32 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
          (1, 3, cross, cross + 1, 256), (3, 256),
          f"n={n} d={d} off 16-byte alignment")
     del flat, flat8
+    # score_metric: each metric's store on both routes and past each
+    # route's depth segment, with and without a mask, 10 rows past n_live
+    # and 64 padding columns past the rows; zero rows and a zero query
+    for d, n, offset in METRIC_CHECK_SHAPES:
+        flat = torch.randn(n * d + offset, device=dev, generator=gen)
+        corpus = flat[offset:].view(n, d)
+        corpus[[0, n // 2]] = 0
+        for b in (1, cross, cross + 1, 257):
+            q = torch.randn((b, d), device=dev, generator=gen)
+            if b > 1:
+                q[-1] = 0
+            masks = (None, torch.rand(n - 10, device=dev, generator=gen)
+                     > 0.3)
+            plan = kernels.score_dot_plan(
+                b, d, math.gcd(corpus.data_ptr(), 16))
+            for metric in kernels.EPILOGUES:
+                for mask in masks:
+                    e, r = check_metric(
+                        kernels, ((corpus, q, metric, n - 10, n + 64, mask),
+                                  {}),
+                        f"b={b} n={n} d={d} offset {offset} mask "
+                        f"{mask is not None} {plan}")
+                    worst["metric"] = (max(worst["metric"][0], e),
+                                       max(worst["metric"][1], r))
+                    shapes += 1
+        del flat, corpus
     # list-like slices: contiguous row ranges of one resident code block
     codes = torch.randint(-127, 128, (200_000, 128), device=dev,
                           generator=gen, dtype=torch.int8)
@@ -6106,16 +6195,21 @@ def check_score_kernels(kernels, dev, card: str) -> tuple[float, float]:
     else:
         raise AssertionError(f"score_int8_lists took an entry of {m_big} "
                              f"queries")
-    log(f"kernel check: score_dot, score_int8 and score_int8_lists within "
+    log(f"kernel check: score_dot, score_metric, score_int8 and "
+        f"score_int8_lists within "
         f"the reordering bound of their plain versions on {shapes} shapes "
         f"(score_dot b {'/'.join(map(str, dot_batches))} (row route up to "
         f"{cross}), score_int8 b 1/3/256/257; d 16/37/100/128/1024, n "
         f"1..1,000,064, corpora off 16-byte alignment, every output "
         f"written through out= off 16 bytes, int8 list slices of 1-5,000 "
         f"rows, "
-        f"{len(tables)} list tables); worst error/bound: score_dot "
-        f"{worst['dot'][1]:.4g}, score_int8 {worst['int8'][1]:.4g} | {card}")
-    return worst["dot"][0], worst["int8"][0]
+        f"{len(tables)} list tables; score_metric's {len(kernels.EPILOGUES)}"
+        f" metrics at (d, n, offset) {METRIC_CHECK_SHAPES}, b 1/{cross}/"
+        f"{cross + 1}/257, with and without a mask, -inf bit for bit in "
+        f"every cleared and padding column); worst error/bound: score_dot "
+        f"{worst['dot'][1]:.4g}, score_metric {worst['metric'][1]:.4g}, "
+        f"score_int8 {worst['int8'][1]:.4g} | {card}")
+    return max(worst["dot"][0], worst["metric"][0]), worst["int8"][0]
 
 
 def dot_routes(kernels, dev, card: str) -> None:
@@ -6261,7 +6355,7 @@ def same_topk(label: str, got, want, corpus, queries, metric: str,
 
 def vector_plane(dev, card: str) -> list[dict]:
     """Phases 8-12: the similar_to vector search plane at 1M x 128.
-    Returns the kernels line's entries of score_dot and score_int8."""
+    Returns the kernels line's entries of score_metric and score_int8."""
     from dgraph_tpu_torch.bench import vectors as bv
     from dgraph_tpu_torch.ops import ivf, kernels, knn
 
@@ -6292,27 +6386,30 @@ def vector_plane(dev, card: str) -> list[dict]:
     for name, two_stage in (("exact", False), ("two-stage", True)):
         fn = exact_fn(two_stage)
         fn(queries)                                     # warm
-        kernels.score_dot.launches = 0
+        reset_launches(kernels)
         times = bv.time_batches(fn, queries, bv.RUNS, dev)
         answers[name], _ = fn(queries)
-        got = kernels.score_dot.launches
-        if got != bv.RUNS + 1:
-            raise AssertionError(f"{name} tier launched score_dot {got} "
-                                 f"times in {bv.RUNS + 1} calls")
+        got = kernels.score_metric.launches[VEC_METRIC]
+        if launches_of(kernels) != {**dict.fromkeys(launches_of(kernels), 0),
+                                    f"score_metric.{VEC_METRIC}":
+                                    bv.RUNS + 1}:
+            raise AssertionError(f"{name} tier launched "
+                                 f"{launches_of(kernels)} in "
+                                 f"{bv.RUNS + 1} calls")
         dot_launches += got
         log(f"{name} tier: {bv.qps(VEC_BATCH, times):.1f} QPS sustained "
             f"({bv.RUNS} batches of {VEC_BATCH} over {sum(times):.4f} s, "
-            f"s {times}); score_dot launched {got} times in {got} calls "
+            f"s {times}); score_metric launched {got} times in {got} calls "
             f"| {card}")
     peak_exact = torch.cuda.max_memory_allocated(dev) / 2**30
     rec_two = bv.recall(answers["exact"], answers["two-stage"])
 
     # answers: the same exact call with the plain version as its scorer
-    knn.score_dot = kernels.score_dot_reference
+    knn.score_metric = kernels.score_metric_reference
     try:
         plain_idx, _ = exact_fn(False)(queries)
     finally:
-        knn.score_dot = kernels.score_dot
+        knn.score_metric = kernels.score_metric
     # cosine scores are dots over norms: the reordering bound d * 2^-24
     # relative to |q||c|, plus a few roundings of the epilogue
     tol = (VEC_D + 4) * 2.0 ** -24
@@ -6332,18 +6429,30 @@ def vector_plane(dev, card: str) -> list[dict]:
         f"two-stage recall@{VEC_K} {rec_two} (>= {knn.RECALL_TARGET}); "
         f"peak device memory {peak_exact:.2f} GiB | {card}")
 
-    # score_dot alone at the main path's shape
-    q_dev = torch.from_numpy(queries).to(dev)
-    dot_ms = cuda_ms(lambda: kernels.score_dot(corpus_dev, q_dev), 10)
-    dot_plain_ms = cuda_ms(
-        lambda: kernels.score_dot_reference(corpus_dev, q_dev), 10)
-    dot_lib_ms = cuda_ms(lambda: torch.matmul(q_dev, corpus_dev.T), 10)
-    dot_bound, dot_by = score_bound_ms([(corpus_dev, q_dev)])
-    log(f"score_dot at (b {VEC_BATCH}, n {VEC_N}, d {VEC_D}): kernel "
-        f"{dot_ms:.4f} ms, plain {dot_plain_ms:.4f} ms, torch.matmul "
-        f"(TF32 off) {dot_lib_ms:.4f} ms, bound {dot_bound:.4f} ms "
-        f"({dot_by}) | {card}")
-    del corpus_dev, q_dev
+    # score_metric alone at the main path's call: the exact tier's, and the
+    # same with a keep mask (the filtered exact tier)
+    calls = []
+
+    def recorded_metric(*args, **kw):
+        calls.append((args, kw))
+        return kernels.score_metric(*args, **kw)
+
+    keep = np.random.default_rng(9).random(VEC_N) > 0.5
+    knn.score_metric = recorded_metric
+    try:
+        exact_fn(False)(queries)
+        knn.topk_device(corpus_dev, queries, VEC_K, VEC_METRIC, mask=keep,
+                        two_stage=False)
+    finally:
+        knn.score_metric = kernels.score_metric
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=dev)
+    dot_entry, text = metric_entry(kernels, calls[0], flush,
+                                   "the exact tier's call", dot_launches)
+    _, mask_text = metric_entry(kernels, calls[1], flush,
+                                "the exact tier's call with a mask", 0)
+    log(f"at (b {VEC_BATCH}, n {VEC_N}, d {VEC_D}), TF32 off, device times "
+        f"from a flushed L2: {text}; with a keep mask, {mask_text} | {card}")
+    del corpus_dev, calls, flush
     torch.cuda.empty_cache()
     dot_routes(kernels, dev, card)
 
@@ -6523,12 +6632,8 @@ def vector_plane(dev, card: str) -> list[dict]:
         f"record {BENCH_VECTORS_100K}")
 
     return [
-        {"name": "score_dot", "route": "cuda",
-         "source": "dgraph_tpu_torch/csrc/score.cu",
-         "replaces": "dgraph_tpu/ops/pallas_kernels.py:123",
-         "launches": dot_launches, "max_abs_err": err_dot,
-         "ms": dot_ms, "plain_ms": dot_plain_ms, "bound_ms": dot_bound,
-         "bound_by": dot_by, "library_ms": dot_lib_ms},
+        {**dot_entry,
+         "max_abs_err": max(dot_entry["max_abs_err"], err_dot)},
         {"name": "score_int8", "route": "cuda",
          "source": "dgraph_tpu_torch/csrc/score.cu",
          "replaces": "dgraph_tpu/ops/pallas_kernels.py:158",

@@ -16,6 +16,39 @@
 // the tile route's time, flat in b, is 0.46 ms: the plan takes the row
 // route up to 44 queries (score_dot_sweep.py, chip_smoke.py's phase 9).
 //
+// The store (score_metric in ops/kernels.py). In place of the dot, the last
+// depth segment of a launch may store the metric's score, each element
+// written once from registers:
+//
+//     euclidean  -((q2 - 2 dot) + c2)
+//     cosine     dot / (qn * cn) where qn * cn > 0, else 0
+//
+// with q2 = |Q[i]|^2, c2 = |C[j]|^2 and qn, cn their IEEE square roots, in
+// PyTorch's float order: 2 dot is exact, and the difference, the sum, the
+// product and the quotient are each rounded once (one __fmaf_rn for
+// q2 - 2 dot, which rounds as the difference does; __fadd_rn, __fmul_rn,
+// __fdiv_rn, which nothing contracts; the build has no fast math). Every
+// column from n_live on, and every column a bool mask clears, holds -inf,
+// the output's padding columns up to n_out too: a bitwise select by the
+// column's bits, so a cleared column holds -inf whatever its score held
+// (NaN or inf from a row's values too) and a kept one its score bit for
+// bit; the tile route selects only in a tile that clears a column (with
+// no mask, the last). The tile route has one build an epilogue, so its
+// store has no branch on it; the row route picks the epilogue at run
+// time. The norms come
+// from values the kernel loads anyway: the row route sums c * c in the
+// registers and shuffles of the dot; the tile route sums each corpus row of
+// a chunk in shared memory (4 lanes a row) and each query row of its
+// resident tile once a block. They are summed in the kernel's order, not
+// torch.sum's, so a score may differ from the plain version's by a few ulp
+// more than the dot alone. Where the depth is cut into segments, each launch
+// passes its partial norms on through a scratch buffer, as the dots pass on
+// through the output (two buffers taken in turn, so no launch overwrites
+// what another of its blocks still reads), and only the last stores
+// scores. Bound: the store adds no byte, and the column's select and the
+// epilogue's few operations an output to 2d FMAs, so each route's bound
+// stands.
+//
 // The tile route, score_dot_kernel, for large batches.
 //   Bound: at the bench batch (b = 256, n = 1M, d = 128) it does
 //   2bnd = 65.5 GFLOP for 0.5 GB of corpus and 1 GB of output, so float32
@@ -153,6 +186,87 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // -- score_dot ---------------------------------------------------------------
 
+// What a launch's last depth segment stores (score_metric in ops/kernels.py):
+// the dot, or the metric's score from the dot and the two rows' squared
+// norms
+constexpr int EPI_DOT = 0, EPI_EUCLIDEAN = 1, EPI_COSINE = 2;
+
+// A launch's store into out [b, n_out], n_out >= n. With `epilogue` (the
+// last depth segment) a column j < n_live that the mask keeps (a null mask
+// keeps every one) gets the metric's score and every other column -inf;
+// earlier segments store their partial dots, and `accumulate` adds the
+// segment before. With norms, prev and next hold the partial squared norms
+// of a cut depth, queries first, then corpus rows ([b + n] floats each):
+// the segment before this one's (null in the first) and this one's (null
+// in the last); two buffers taken in turn, so no launch writes what it
+// reads.
+struct Store {
+  int64_t n_out, n_live;
+  const unsigned char* mask;
+  int epi;
+  int accumulate, epilogue;
+  const float* prev;
+  float* next;
+};
+
+__device__ __forceinline__ float neg_inf() {
+  return -__int_as_float(0x7f800000);
+}
+
+// what the epilogue takes of a row's squared norm: the norm itself for
+// cosine (IEEE square root), the square for euclidean
+__device__ __forceinline__ float norm_value(int epi, float sq) {
+  return epi == EPI_COSINE ? __fsqrt_rn(sq) : sq;
+}
+
+// the metric's score of a dot, from its rows' norm_value qv and cv, in
+// PyTorch's float order: euclidean -((q2 - 2 dot) + c2), the difference
+// and the sum each rounded once (2 dot is exact, so the fused
+// q2 - 2 dot rounds as the two steps do; the sum is not fused); cosine
+// dot / (qn * cn), product and quotient rounded, where the denominator is
+// positive, else 0 (as torch.where(pos, dot / torch.where(pos, den, 1), 0))
+template <int E>
+__device__ __forceinline__ float metric_score(float dot, float qv, float cv) {
+  if (E == EPI_EUCLIDEAN) return -__fadd_rn(__fmaf_rn(-2.f, dot, qv), cv);
+  if (E == EPI_COSINE) {
+    const float den = __fmul_rn(qv, cv);
+    const float quo = __fdiv_rn(dot, den > 0.f ? den : 1.f);
+    return den > 0.f ? quo : 0.f;
+  }
+  return dot;
+}
+
+// the same with the epilogue known only at run time (the row route)
+__device__ __forceinline__ float metric_score(int epi, float dot, float qv,
+                                              float cv) {
+  switch (epi) {
+    case EPI_EUCLIDEAN: return metric_score<EPI_EUCLIDEAN>(dot, qv, cv);
+    case EPI_COSINE: return metric_score<EPI_COSINE>(dot, qv, cv);
+    default: return dot;
+  }
+}
+
+// a column's bits for the last segment's store: all ones where the column
+// is live and the mask keeps it, none where not
+__device__ __forceinline__ unsigned column_keep(const Store& s, int64_t col) {
+  const bool keep =
+      col < s.n_live && (s.mask == nullptr || __ldg(s.mask + col) != 0);
+  return keep ? ~0u : 0u;
+}
+
+// the score where the column keeps it, else -inf, whatever the score
+// holds (NaN and inf too): a bitwise select an element
+__device__ __forceinline__ float kept(float score, unsigned keep) {
+  return __uint_as_float((__float_as_uint(score) & keep) |
+                         (__float_as_uint(neg_inf()) & ~keep));
+}
+
+// whether a tile's store clears some column (score_dot_kernel's store)
+template <bool V>
+struct Clears {
+  static constexpr bool value = V;
+};
+
 // the tile of score_dot
 struct DotTile {
   static constexpr int TQ = 8;                // queries a thread
@@ -165,28 +279,37 @@ struct DotTile {
   static constexpr int CSTR = KC + 4;         // floats a row takes in a stage
   static constexpr int STAGES = 3;
   static constexpr int RING = STAGES * BN * CSTR;   // floats
-  // the deepest segment whose query tile fits beside the ring: a multiple
-  // of KC, its row stride (DSEG + 4) is 4 mod 32
+  static constexpr int NORM_FLOATS = BQ + BN; // the tile's norms
+  // the deepest segment whose query tile fits beside the ring and the
+  // norms: a multiple of KC, its row stride (DSEG + 4) is 4 mod 32
   static constexpr int DSEG =
-      ((SMEM_MAX / 4 - RING) / BQ - 4) / KC * KC;
+      ((SMEM_MAX / 4 - RING - NORM_FLOATS) / BQ - 4) / KC * KC;
   static_assert(QL * CL == THREADS, "lanes");
   static_assert(DSEG >= KC, "segment");
+  // a thread a query row and 4 a corpus row of a chunk for the norms
+  static_assert(BQ == THREADS && BN * 4 == THREADS && KC == 64, "norms");
 };
 using C = DotTile;
 constexpr int BQ = C::BQ, TQ = C::TQ, TN = C::TN;
+static_assert(C::DSEG == 128, "DOT_TILE_DSEG in ops/kernels.py");
 
-template <bool VEC>
+// E is the launch's epilogue (EPI_*), one build each: the store has no
+// branch on it, and the dot's build keeps no norms
+template <bool VEC, int E>
 __global__ void __launch_bounds__(THREADS, 1)
 score_dot_kernel(const float* __restrict__ corpus,
                  const float* __restrict__ queries, float* __restrict__ out,
-                 int64_t n, int64_t b, int64_t d, int64_t k0, int ds,
-                 int accumulate) {
+                 Store s, int64_t n, int64_t b, int64_t d, int64_t k0,
+                 int ds) {
+  constexpr bool NORMS = E != EPI_DOT;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int nch = (ds + C::KC - 1) / C::KC;   // chunks a tile
   const int qstr = nch * C::KC + 4;
   float* const qs = smem;                     // [BQ][qstr]
   float* const ring = smem + BQ * qstr;       // [STAGES][BN][CSTR]
+  float* const qn = ring + C::RING;           // [BQ] the queries' norms
+  float* const cn = qn + BQ;                  // [BN] the tile's rows'
   const int tid = threadIdx.x;
   const int64_t q0 = static_cast<int64_t>(blockIdx.y) * BQ;
 
@@ -198,8 +321,27 @@ score_dot_kernel(const float* __restrict__ corpus,
     qs[r * qstr + k] = (row < b && k < ds) ? __ldg(queries + row * d + k0 + k)
                                            : 0.f;
   }
+  if (NORMS) {
+    // thread tid sums the squares of the tile's query row tid
+    __syncthreads();
+    const float4* const qr = reinterpret_cast<const float4*>(qs + tid * qstr);
+    float q2 = 0.f;
+    for (int k = 0; k < nch * (C::KC / 4); ++k) {
+      const float4 v = qr[k];
+      q2 = fmaf(v.x, v.x, q2);
+      q2 = fmaf(v.y, v.y, q2);
+      q2 = fmaf(v.z, v.z, q2);
+      q2 = fmaf(v.w, v.w, q2);
+    }
+    const int64_t row = q0 + tid;
+    if (row < b) {
+      if (s.prev) q2 += s.prev[row];
+      if (s.next && blockIdx.x == 0) s.next[row] = q2;
+    }
+    qn[tid] = s.epilogue ? norm_value(E, q2) : q2;
+  }
 
-  const int64_t ntiles = (n + C::BN - 1) / C::BN;
+  const int64_t ntiles = (s.n_out + C::BN - 1) / C::BN;
   const int64_t bx = blockIdx.x;
   const int64_t mine = bx < ntiles ? (ntiles - 1 - bx) / gridDim.x + 1 : 0;
   const int64_t total = mine * nch;           // chunks this block multiplies
@@ -238,10 +380,11 @@ score_dot_kernel(const float* __restrict__ corpus,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   }
+  float c2 = 0.f;   // with norms: row tid / 4 of the tile, a quarter of it
 
 #pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < total) load_chunk(s);
+  for (int p = 0; p < C::STAGES - 1; ++p) {
+    if (p < total) load_chunk(p);
     cp_async_commit();
   }
   for (int64_t g = 0; g < total; ++g) {
@@ -253,6 +396,38 @@ score_dot_kernel(const float* __restrict__ corpus,
     const float* const st =
         ring + static_cast<int>(g % C::STAGES) * (C::BN * C::CSTR);
     const int kc = static_cast<int>(g % nch);
+    if (NORMS) {
+      // 4 lanes a row of the chunk, 16 floats each
+      const float4* const cr = reinterpret_cast<const float4*>(
+          st + (tid / 4) * C::CSTR + (tid % 4) * 16);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 v = cr[u];
+        c2 = fmaf(v.x, v.x, c2);
+        c2 = fmaf(v.y, v.y, c2);
+        c2 = fmaf(v.z, v.z, c2);
+        c2 = fmaf(v.w, v.w, c2);
+      }
+      if (kc == nch - 1) {
+        // the tile's norms are whole: into shared memory, behind a
+        // barrier before the product loop, so the store after it reads
+        // them with no barrier of its own. Every read of the tile
+        // before's norms came before the barrier at the top of this chunk
+        c2 += __shfl_xor_sync(0xffffffffu, c2, 1);
+        c2 += __shfl_xor_sync(0xffffffffu, c2, 2);
+        if (tid % 4 == 0) {
+          const int64_t col =
+              (bx + (g / nch) * gridDim.x) * C::BN + tid / 4;
+          if (col < n) {
+            if (s.prev) c2 += s.prev[b + col];
+            if (s.next && blockIdx.y == 0) s.next[b + col] = c2;
+          }
+          cn[tid / 4] = s.epilogue ? norm_value(E, c2) : c2;
+        }
+        c2 = 0.f;
+        __syncthreads();              // the tile's norms are in
+      }
+    }
     const float* const qk = qs + kc * C::KC;
 #pragma unroll
     for (int kk = 0; kk < C::KC; kk += 4) {
@@ -281,18 +456,43 @@ score_dot_kernel(const float* __restrict__ corpus,
 
     if (kc == nch - 1) {              // the tile's last chunk: store it
       const int64_t col0 = (bx + (g / nch) * gridDim.x) * C::BN;
-#pragma unroll
-      for (int i = 0; i < TQ; ++i) {
-        const int64_t row = q0 + ty + i * C::QL;
+      // the store from registers: with CLEARS each score takes its
+      // column's bits (kept), without, the score goes as it is
+      auto store = [&](auto clears) {
+        constexpr bool CLEARS = decltype(clears)::value;
+        float cv[TN];
+        unsigned keep[TN];
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          const int64_t col = col0 + tx + j * C::CL;
-          if (row < b && col < n) {
-            float* const o = out + row * n + col;
-            *o = accumulate ? acc[i][j] + *o : acc[i][j];
-          }
-          acc[i][j] = 0.f;
+          keep[j] = CLEARS ? column_keep(s, col0 + tx + j * C::CL) : ~0u;
+          cv[j] = NORMS ? cn[tx + j * C::CL] : 0.f;
         }
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          const int64_t row = q0 + ty + i * C::QL;
+          const float qv = NORMS ? qn[ty + i * C::QL] : 0.f;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int64_t col = col0 + tx + j * C::CL;
+            if (row < b && col < s.n_out) {
+              float* const o = out + row * s.n_out + col;
+              const float dot = s.accumulate ? acc[i][j] + *o : acc[i][j];
+              const float score =
+                  s.epilogue ? metric_score<E>(dot, qv, cv[j]) : dot;
+              *o = CLEARS ? kept(score, keep[j]) : score;
+            }
+            acc[i][j] = 0.f;
+          }
+        }
+      };
+      // a tile clears a column only past n_live or under a mask: with no
+      // mask every tile but the last keeps every column, so the select
+      // costs a branch a tile, where a select an element made the dot's
+      // build 7.5% slower at (256, 1M, 128) on an H100
+      if (s.epilogue && (s.mask != nullptr || col0 + C::BN > s.n_live)) {
+        store(Clears<true>{});
+      } else {
+        store(Clears<false>{});
       }
     }
   }
@@ -319,10 +519,25 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <bool VEC>
+// segment seg's store of a launch cut into segments of dseg floats of
+// depth: it adds to the one before, the last writes the scores, and with
+// norms the partial norms pass through `part` ([2][b + n] floats)
+Store segment_store(Store s, int64_t k0, int64_t dseg, int64_t d,
+                    float* part, int64_t b, int64_t n) {
+  const int64_t seg = k0 / dseg;
+  s.accumulate = k0 > 0;
+  s.epilogue = k0 + dseg >= d;
+  s.prev = part && k0 > 0 ? part + ((seg - 1) & 1) * (b + n) : nullptr;
+  s.next = part && !s.epilogue ? part + (seg & 1) * (b + n) : nullptr;
+  return s;
+}
+
+template <bool VEC, int E>
 int launch_dot(const float* corpus, const float* queries, float* out,
-               int64_t n, int64_t b, int64_t d, cudaStream_t stream) {
-  auto kernel = score_dot_kernel<VEC>;
+               Store base, float* part, int64_t n, int64_t b, int64_t d,
+               cudaStream_t stream) {
+  constexpr bool NORMS = E != EPI_DOT;
+  auto kernel = score_dot_kernel<VEC, E>;
   static const cudaError_t attr = allow_smem(kernel, SMEM_MAX);   // once
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int sms = sm_count();
@@ -331,14 +546,16 @@ int launch_dot(const float* corpus, const float* queries, float* out,
   // asked once each
   constexpr int NCH = C::DSEG / C::KC;
   static std::atomic<int> blocks_per_sm[NCH + 1];
-  const int64_t ntiles = (n + C::BN - 1) / C::BN;
+  const int64_t ntiles = (base.n_out + C::BN - 1) / C::BN;
   const int64_t gy = (b + BQ - 1) / BQ;
   if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
   for (int64_t k0 = 0; k0 < d; k0 += C::DSEG) {
     const int ds = static_cast<int>(d - k0 < C::DSEG ? d - k0 : C::DSEG);
     const int nch = (ds + C::KC - 1) / C::KC;
     const int qstr = nch * C::KC + 4;
-    const size_t smem = (static_cast<size_t>(BQ) * qstr + C::RING) * 4;
+    const size_t floats = static_cast<size_t>(BQ) * qstr + C::RING +
+                          (NORMS ? C::NORM_FLOATS : 0);
+    const size_t smem = floats * 4;
     int per_sm = blocks_per_sm[nch].load(std::memory_order_relaxed);
     if (per_sm == 0) {
       const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -351,8 +568,9 @@ int launch_dot(const float* corpus, const float* queries, float* out,
     int64_t gx = (static_cast<int64_t>(sms) * per_sm + gy - 1) / gy;
     if (gx > ntiles) gx = ntiles;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-    kernel<<<grid, THREADS, smem, stream>>>(corpus, queries, out, n, b, d, k0,
-                                            ds, k0 > 0 ? 1 : 0);
+    kernel<<<grid, THREADS, smem, stream>>>(
+        corpus, queries, out,
+        segment_store(base, k0, C::DSEG, d, part, b, n), n, b, d, k0, ds);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -374,13 +592,13 @@ struct RowTile {
   static constexpr int R = QT <= 2 ? 4 : QT <= 8 ? 2 : 1;
 };
 
-template <int QT, bool VEC>
+template <int QT, bool VEC, bool NORMS>
 __global__ void __launch_bounds__(THREADS)
 score_dot_rows_kernel(const float* __restrict__ corpus,
                       const float* __restrict__ queries,
-                      float* __restrict__ out, int64_t n, int64_t d,
-                      int64_t q0, int bq, int64_t k0, int ds, int lanes,
-                      int accumulate) {
+                      float* __restrict__ out, Store s, int64_t n, int64_t b,
+                      int64_t d, int64_t q0, int bq, int64_t k0, int ds,
+                      int lanes) {
   constexpr int R = RowTile<QT>::R;
   constexpr int W = VEC ? 4 : 1;              // floats a load
   const int lane = threadIdx.x % 32;
@@ -389,7 +607,7 @@ score_dot_rows_kernel(const float* __restrict__ corpus,
   const int span = lanes * W;                 // floats of a row a step
   const int steps = (ds + span - 1) / span;   // steps a unit
   const int64_t unit = static_cast<int64_t>(groups) * R;   // rows a unit
-  const int64_t units = (n + unit - 1) / unit;
+  const int64_t units = (s.n_out + unit - 1) / unit;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (THREADS / 32);
 
   // this lane's loads of step t of unit u: rows u * unit + lane / lanes +
@@ -414,8 +632,10 @@ score_dot_rows_kernel(const float* __restrict__ corpus,
   };
 
   float acc[R][QT];
+  float c2[R];      // with norms: each row's squared norm, this lane's part
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    c2[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < QT; ++j) acc[r][j] = 0.f;
   }
@@ -428,12 +648,31 @@ score_dot_rows_kernel(const float* __restrict__ corpus,
   extern __shared__ float4 smem4[];
   float* const qs = reinterpret_cast<float*>(smem4);   // [bq][qstr]
   const int qstr = (ds + 3) & ~3;
+  float* const qn = qs + bq * qstr;                    // [bq] their norms
   for (int idx = threadIdx.x; idx < bq * ds; idx += THREADS) {
     const int j = idx / ds;
     const int k = idx - j * ds;
     qs[j * qstr + k] = __ldg(queries + (q0 + j) * d + k0 + k);
   }
   __syncthreads();
+  if (NORMS) {
+    // warp w sums the squares of queries w, w + 8, ...; a shuffle ends each
+    for (int j = threadIdx.x / 32; j < bq; j += THREADS / 32) {
+      float q2 = 0.f;
+      for (int k = lane; k < ds; k += 32) {
+        q2 = fmaf(qs[j * qstr + k], qs[j * qstr + k], q2);
+      }
+      for (int o = 16; o > 0; o /= 2) {
+        q2 += __shfl_xor_sync(0xffffffffu, q2, o);
+      }
+      if (s.prev) q2 += s.prev[q0 + j];
+      if (lane == 0) {
+        if (s.next && blockIdx.x == 0) s.next[q0 + j] = q2;
+        qn[j] = s.epilogue ? norm_value(s.epi, q2) : q2;
+      }
+    }
+    __syncthreads();
+  }
 
   while (u < units) {
     // the next step's loads go out before this step's arithmetic
@@ -467,15 +706,39 @@ score_dot_rows_kernel(const float* __restrict__ corpus,
           }
         }
       }
+      if (NORMS) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          c2[r] = fmaf(c[r].x, c[r].x, c2[r]);
+          if (VEC) {
+            c2[r] = fmaf(c[r].y, c[r].y, c2[r]);
+            c2[r] = fmaf(c[r].z, c[r].z, c2[r]);
+            c2[r] = fmaf(c[r].w, c[r].w, c2[r]);
+          }
+        }
+      }
     }
     if (last) {
-      // a shuffle over the row's lanes finishes each dot; bq is the same
-      // for the whole block and u for the whole warp, so every lane
-      // shuffles
+      // a shuffle over the row's lanes finishes each dot (and norm); bq is
+      // the same for the whole block and u for the whole warp, so every
+      // lane shuffles
       const int64_t row0 = u * unit + lane / lanes;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int64_t row = row0 + r * groups;
+        float cv = 0.f;
+        if (NORMS) {
+          for (int o = lanes / 2; o > 0; o /= 2) {
+            c2[r] += __shfl_xor_sync(0xffffffffu, c2[r], o);
+          }
+          if (row < n) {
+            if (s.prev) c2[r] += s.prev[b + row];
+            if (s.next && sub == 0) s.next[b + row] = c2[r];
+          }
+          cv = norm_value(s.epi, c2[r]);
+          c2[r] = 0.f;
+        }
+        const unsigned keep = column_keep(s, row);
 #pragma unroll
         for (int j = 0; j < QT; ++j) {
           if (j < bq) {
@@ -483,9 +746,13 @@ score_dot_rows_kernel(const float* __restrict__ corpus,
               acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
             }
             // the group's lanes share the stores
-            if ((r * QT + j) % lanes == sub && row < n) {
-              float* const o = out + (q0 + j) * n + row;
-              *o = accumulate ? acc[r][j] + *o : acc[r][j];
+            if ((r * QT + j) % lanes == sub && row < s.n_out) {
+              float* const o = out + (q0 + j) * s.n_out + row;
+              const float dot = s.accumulate ? acc[r][j] + *o : acc[r][j];
+              *o = s.epilogue
+                  ? kept(metric_score(s.epi, dot, NORMS ? qn[j] : 0.f, cv),
+                         keep)
+                  : dot;
             }
           }
           acc[r][j] = 0.f;
@@ -499,16 +766,17 @@ score_dot_rows_kernel(const float* __restrict__ corpus,
   }
 }
 
-template <int QT, bool VEC>
+template <int QT, bool VEC, bool NORMS>
 int launch_rows(const float* corpus, const float* queries, float* out,
-                int64_t n, int64_t b, int64_t d, int lanes,
-                cudaStream_t stream) {
-  auto kernel = score_dot_rows_kernel<QT, VEC>;
+                Store base, float* part, int64_t n, int64_t b, int64_t d,
+                int lanes, cudaStream_t stream) {
+  auto kernel = score_dot_rows_kernel<QT, VEC, NORMS>;
+  constexpr int QN = NORMS ? QT * 4 : 0;      // bytes of the queries' norms
   // blocks an SM holds at the most queries' shared memory; asked once
   static const int per_sm = [kernel] {
     int blocks = 0;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &blocks, kernel, THREADS, ROW_QFLOATS * 4) == cudaSuccess
+               &blocks, kernel, THREADS, ROW_QFLOATS * 4 + QN) == cudaSuccess
                ? blocks : 0;
   }();
   const int sms = sm_count();
@@ -516,7 +784,7 @@ int launch_rows(const float* corpus, const float* queries, float* out,
     return static_cast<int>(cudaErrorInvalidDevice);
   }
   const int64_t unit = static_cast<int64_t>(32 / lanes) * RowTile<QT>::R;
-  const int64_t units = (n + unit - 1) / unit;
+  const int64_t units = (base.n_out + unit - 1) / unit;
   int64_t grid = static_cast<int64_t>(sms) * per_sm;
   const int64_t wanted = (units + THREADS / 32 - 1) / (THREADS / 32);
   if (grid > wanted) grid = wanted;
@@ -525,9 +793,10 @@ int launch_rows(const float* corpus, const float* queries, float* out,
     const int bq = static_cast<int>(b - q0 < QT ? b - q0 : QT);
     for (int64_t k0 = 0; k0 < d; k0 += DSEG) {
       const int ds = static_cast<int>(d - k0 < DSEG ? d - k0 : DSEG);
-      const size_t smem = static_cast<size_t>(bq) * ((ds + 3) & ~3) * 4;
+      const size_t smem = static_cast<size_t>(bq) * ((ds + 3) & ~3) * 4 + QN;
       kernel<<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(
-          corpus, queries, out, n, d, q0, bq, k0, ds, lanes, k0 > 0 ? 1 : 0);
+          corpus, queries, out, segment_store(base, k0, DSEG, d, part, b, n),
+          n, b, d, q0, bq, k0, ds, lanes);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
@@ -535,25 +804,43 @@ int launch_rows(const float* corpus, const float* queries, float* out,
   return 0;
 }
 
-template <bool VEC>
+template <bool VEC, bool NORMS>
 int launch_rows_of(int q_tile, const float* corpus, const float* queries,
-                   float* out, int64_t n, int64_t b, int64_t d, int lanes,
-                   cudaStream_t stream) {
+                   float* out, Store base, float* part, int64_t n, int64_t b,
+                   int64_t d, int lanes, cudaStream_t stream) {
   switch (q_tile) {
-    case 1: return launch_rows<1, VEC>(corpus, queries, out, n, b, d, lanes,
-                                       stream);
-    case 2: return launch_rows<2, VEC>(corpus, queries, out, n, b, d, lanes,
-                                       stream);
-    case 4: return launch_rows<4, VEC>(corpus, queries, out, n, b, d, lanes,
-                                       stream);
-    case 8: return launch_rows<8, VEC>(corpus, queries, out, n, b, d, lanes,
-                                       stream);
-    case 16: return launch_rows<16, VEC>(corpus, queries, out, n, b, d, lanes,
-                                         stream);
-    case 32: return launch_rows<32, VEC>(corpus, queries, out, n, b, d, lanes,
-                                         stream);
+    case 1: return launch_rows<1, VEC, NORMS>(corpus, queries, out, base,
+                                              part, n, b, d, lanes, stream);
+    case 2: return launch_rows<2, VEC, NORMS>(corpus, queries, out, base,
+                                              part, n, b, d, lanes, stream);
+    case 4: return launch_rows<4, VEC, NORMS>(corpus, queries, out, base,
+                                              part, n, b, d, lanes, stream);
+    case 8: return launch_rows<8, VEC, NORMS>(corpus, queries, out, base,
+                                              part, n, b, d, lanes, stream);
+    case 16: return launch_rows<16, VEC, NORMS>(corpus, queries, out, base,
+                                                part, n, b, d, lanes, stream);
+    case 32: return launch_rows<32, VEC, NORMS>(corpus, queries, out, base,
+                                                part, n, b, d, lanes, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the route's launches: the tile route's build of the epilogue, or the row
+// route's build with or without norms
+template <bool VEC>
+int launch_route(int route, int q_tile, const float* corpus,
+                 const float* queries, float* out, Store base, float* part,
+                 int64_t n, int64_t b, int64_t d, int lanes,
+                 cudaStream_t stream) {
+  if (route == 0) {
+    auto fn = base.epi == EPI_EUCLIDEAN ? launch_dot<VEC, EPI_EUCLIDEAN>
+              : base.epi == EPI_COSINE  ? launch_dot<VEC, EPI_COSINE>
+                                        : launch_dot<VEC, EPI_DOT>;
+    return fn(corpus, queries, out, base, part, n, b, d, stream);
+  }
+  auto fn = base.epi == EPI_DOT ? launch_rows_of<VEC, false>
+                                : launch_rows_of<VEC, true>;
+  return fn(q_tile, corpus, queries, out, base, part, n, b, d, lanes, stream);
 }
 
 // -- score_int8_lists --------------------------------------------------------
@@ -708,41 +995,54 @@ int launch_lists(const int8_t* codes, const float* queries,
 
 }  // namespace
 
-// corpus: float32 [n, d], queries: float32 [b, d], out: float32 [b, n]; all
-// contiguous on the device; n, b, d >= 1. `route` 0 is the tile route
-// (q_tile 256, lanes 1): one launch a depth segment of DSEG (128) floats.
-// `route` 1 is the row route (q_tile 1, 2, 4, 8, 16 or 32 queries a pass;
-// `lanes` a row, a power of two up to 32): one launch a pass of q_tile
-// queries and a depth segment of ROW_QFLOATS / q_tile floats. `vec` is 4 (16-byte
-// corpus loads: d % 4 == 0 and the corpus on 16 bytes) or 1. Launches on
-// `stream` and returns the CUDA error code of the launches (0 on success);
-// cudaErrorInvalidValue for a plan it cannot run.
+// corpus: float32 [n, d], queries: float32 [b, d], out: float32 [b, n_out];
+// all contiguous on the device; n, b, d >= 1, 0 <= n_live <= n <= n_out.
+// `route` 0 is the tile route (q_tile 256, lanes 1): one launch a depth
+// segment of DSEG (128) floats. `route` 1 is the row route (q_tile 1, 2, 4,
+// 8, 16 or 32 queries a pass; `lanes` a row, a power of two up to 32): one
+// launch a pass of q_tile queries and a depth segment of ROW_QFLOATS /
+// q_tile floats. `vec` is 4 (16-byte corpus loads: d % 4 == 0 and the
+// corpus on 16 bytes) or 1. `epi` is what the last segment stores:
+// EPI_DOT (0) the dot, EPI_EUCLIDEAN (1) -||q - c||^2, EPI_COSINE (2) the
+// cosine, from the rows' norms the kernel sums; -inf in every column
+// >= n_live and every column j < n_live with mask[j] == 0 (mask: bool
+// [n_live] on the device, or null). `part`: float32 [2 * (b + n)] on the
+// device for the partial norms of a depth cut into more than one segment
+// with an epilogue other than EPI_DOT, else ignored (may be null).
+// Launches on `stream` and returns the CUDA error code of the launches (0
+// on success); cudaErrorInvalidValue for a plan or arguments it cannot run.
 extern "C" int score_dot_launch(const void* corpus, const void* queries,
                                 void* out, int64_t n, int64_t b, int64_t d,
                                 int route, int vec, int q_tile, int lanes,
-                                void* stream) {
+                                int epi, int64_t n_live, int64_t n_out,
+                                const void* mask, void* part, void* stream) {
   const bool aligned = d % 4 == 0 &&
                        reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
   if (n <= 0 || b <= 0 || d <= 0 || (vec != 1 && vec != 4) ||
-      (vec == 4 && !aligned)) {
+      (vec == 4 && !aligned) || epi < EPI_DOT || epi > EPI_COSINE ||
+      n_live < 0 || n_live > n || n_out < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == 0 ? q_tile != BQ || lanes != 1
+                 : route != 1 || lanes < 1 || lanes > 32 ||
+                       (lanes & (lanes - 1)) != 0 || q_tile < 1 ||
+                       q_tile > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool norms = epi != EPI_DOT;
+  const int64_t dseg = route == 0 ? C::DSEG : ROW_QFLOATS / q_tile;
+  if (norms && d > dseg && part == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* c = static_cast<const float*>(corpus);
   const auto* q = static_cast<const float*>(queries);
-  auto* o = static_cast<float*>(out);
+  const Store base{n_out, n_live, static_cast<const unsigned char*>(mask),
+                   epi, 0, 1, nullptr, nullptr};
+  auto* p = norms && d > dseg ? static_cast<float*>(part) : nullptr;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
-    if (q_tile != BQ || lanes != 1) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return vec == 4 ? launch_dot<true>(c, q, o, n, b, d, s)
-                    : launch_dot<false>(c, q, o, n, b, d, s);
-  }
-  if (route != 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return vec == 4 ? launch_rows_of<true>(q_tile, c, q, o, n, b, d, lanes, s)
-                  : launch_rows_of<false>(q_tile, c, q, o, n, b, d, lanes, s);
+  auto fn = vec == 4 ? launch_route<true> : launch_route<false>;
+  return fn(route, q_tile, c, q, static_cast<float*>(out), base, p, n, b, d,
+            lanes, s);
 }
 
 // What a caller of score_int8_lists_launch sizes its table by, at depth d:

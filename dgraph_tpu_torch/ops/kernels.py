@@ -12,6 +12,11 @@ Counterpart of `dgraph_tpu/ops/pallas_kernels.py`:
   `pallas_kernels.py:123`), on one of two routes that
   `score_dot_plan` picks by the batch: a resident tile of 256 queries
   for large batches, a stream of corpus rows for a few queries.
+  `score_metric` is the same kernel storing a metric's score (dot,
+  euclidean or cosine, from the rows' norms it sums itself) with -inf in
+  the padding and masked columns: the exact tiers' scores in one launch.
+  `score_dot` is its "dot" with every column live. Both count their
+  launches by metric in `score_metric.launches`.
 - `score_int8_lists` is the approximate stage of the quantized IVF
   tier in one launch, the int8-code scores of every probed list over a
   work table (`csrc/score.cu`, replacing `score_int8_pallas`,
@@ -25,8 +30,8 @@ Counterpart of `dgraph_tpu/ops/pallas_kernels.py`:
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs its plain version (`*_reference`), which the tests hold
-against the reference package. Each wrapper counts its launches in
-`<wrapper>.launches`.
+against the reference package. Each wrapper but `score_dot` counts its
+launches in `<wrapper>.launches`; `launch_counts()` gathers them.
 """
 
 from __future__ import annotations
@@ -47,10 +52,14 @@ from dgraph_tpu_torch.ops import _build
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper) -> None:
-    """One more launch of `wrapper`'s kernel."""
+def _count(wrapper, key: str | None = None) -> None:
+    """One more launch of `wrapper`'s kernel (under `key`, for a wrapper
+    that counts its launches by kind)."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        if key is None:
+            wrapper.launches += 1
+        else:
+            wrapper.launches[key] += 1
 
 # bucket_or's plan (csrc/bucket_or.cu): a unit stages at most OR_SPAN
 # in-neighbour indices (kSpan); degrees up to OR_ROW_MAX_D (kRowMaxD) take
@@ -531,7 +540,7 @@ def load_score_library() -> ctypes.CDLL:
     fn = lib.score_dot_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_int] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
     fn = lib.score_int8_lists_launch
     if fn.argtypes is None:
@@ -616,6 +625,11 @@ DOT_ROW_LANES = {1: 8, 2: 8, 4: 8, 8: 4, 16: 2, 32: 1}
 # (score_dot_sweep.py and chip_smoke.py's phase 9 on an H100); the tile
 # route's time is flat in b up to 256
 DOT_ROWS_MAX_B = 44
+# the depth of a tile-route segment (DSEG): deeper rows take more launches
+DOT_TILE_DSEG = 128
+# what the last depth segment of a launch stores, by metric (EPI_* in
+# csrc/score.cu): the dot, or the metric's score from the rows' norms
+EPILOGUES = {"dot": 0, "euclidean": 1, "cosine": 2}
 
 
 class DotPlan(NamedTuple):
@@ -645,6 +659,14 @@ def score_dot_plan(b: int, d: int, align: int) -> DotPlan:
     loads = -(-min(d, DOT_ROW_QFLOATS // q_tile) // vec)
     return DotPlan(DOT_ROWS, vec, q_tile,
                    min(1 << (loads - 1).bit_length(), DOT_ROW_LANES[q_tile]))
+
+
+def dot_segment(plan: DotPlan) -> int:
+    """Floats of depth one launch of `plan` takes: deeper rows are cut
+    into segments, each a launch that adds to the one before."""
+    if plan.route == DOT_TILE:
+        return DOT_TILE_DSEG
+    return DOT_ROW_QFLOATS // plan.q_tile
 
 
 def score_dot_reference(corpus: torch.Tensor,
@@ -689,7 +711,8 @@ def score_int8_lists_reference(codes: torch.Tensor, queries: torch.Tensor,
 
 
 def _check_score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
-                 dtype: torch.dtype, out: torch.Tensor | None) -> None:
+                 dtype: torch.dtype, out: torch.Tensor | None,
+                 n_out: int | None = None) -> None:
     if corpus.dtype != dtype or queries.dtype != torch.float32:
         raise TypeError(f"{name} takes {dtype} rows and float32 queries, "
                         f"got {corpus.dtype} and {queries.dtype}")
@@ -706,7 +729,8 @@ def _check_score(name: str, corpus: torch.Tensor, queries: torch.Tensor,
     if not (corpus.is_contiguous() and queries.is_contiguous()):
         raise ValueError(f"{name} takes contiguous rows and queries")
     if out is not None:
-        want = (queries.shape[0], corpus.shape[0])
+        want = (queries.shape[0],
+                corpus.shape[0] if n_out is None else n_out)
         if out.dtype != torch.float32 or tuple(out.shape) != want:
             raise ValueError(f"out must be float32 {want}, got {out.dtype} "
                              f"{tuple(out.shape)}")
@@ -721,37 +745,134 @@ def _into(res: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out
 
 
+def score_metric_reference(corpus: torch.Tensor, queries: torch.Tensor,
+                           metric: str, n_live: int, n_out: int,
+                           mask: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Plain version of `score_metric`: the plain dots, the metric's
+    epilogue in the reference's operation order (`knn._epilogue`), the
+    columns padded with -inf to n_out, then -inf in every column past
+    n_live and where the mask is False."""
+    # ops/knn imports this module, so its epilogue is looked up here
+    from dgraph_tpu_torch.ops.knn import _epilogue
+    n = corpus.shape[0]
+    scores = _epilogue(score_dot_reference(corpus, queries), corpus,
+                       queries, metric)
+    if n_out != n:
+        scores = torch.nn.functional.pad(scores, (0, n_out - n),
+                                         value=-math.inf)
+    invalid = torch.arange(n_out, device=corpus.device) >= n_live
+    if mask is not None:
+        invalid[:n_live] |= ~mask
+    # in place: the scores are this call's own tensor
+    return scores.masked_fill_(invalid[None, :], -math.inf)
+
+
+def score_metric_bound(metric: str, corpus: torch.Tensor,
+                       queries: torch.Tensor) -> torch.Tensor:
+    """float64 [b, n]: the most `score_metric`'s score of a live column
+    may differ from its plain version's. Both sum the same float32
+    products in another order: the dot within d * 2^-24 * sum_k |q_k c_k|
+    (the reordering bound), each squared norm within 2 d 2^-24 of itself
+    (positive terms, fused or not); then each version rounds each
+    epilogue step once."""
+    u = 2.0 ** -24
+    q64, c64 = queries.double(), corpus.double()
+    d = queries.shape[1]
+    bound = d * u * (q64.abs() @ c64.abs().T)
+    if metric == "dot":
+        return bound
+    dot = q64 @ c64.T
+    q2, c2 = (q64 * q64).sum(1)[:, None], (c64 * c64).sum(1)[None, :]
+    bq, bc = 2 * d * u * q2, 2 * d * u * c2
+    if metric == "euclidean":
+        return 2 * bound + bq + bc + 2 * u * (
+            (q2 - 2 * dot).abs() + (q2 - 2 * dot + c2).abs())
+    den = (q2 * c2).sqrt().clamp_min(1e-300)
+    rel = 0.5 * (bq / q2.clamp_min(1e-300) + bc / c2.clamp_min(1e-300))
+    return bound / den + (dot / den).abs() * (rel + 16 * u)
+
+
+def _check_metric(corpus: torch.Tensor, queries: torch.Tensor, metric: str,
+                  n_live: int, n_out: int, mask: torch.Tensor | None,
+                  out: torch.Tensor | None) -> None:
+    _check_score("score_metric", corpus, queries, torch.float32, out, n_out)
+    if metric not in EPILOGUES:
+        raise ValueError(f"score_metric takes a metric of "
+                         f"{sorted(EPILOGUES)}, got {metric!r}")
+    n = corpus.shape[0]
+    if not 0 <= n_live <= n <= n_out:
+        raise ValueError(f"score_metric takes 0 <= n_live <= rows <= "
+                         f"n_out, got n_live {n_live}, {n} rows, n_out "
+                         f"{n_out}")
+    if mask is not None:
+        if mask.dtype != torch.bool or tuple(mask.shape) != (n_live,):
+            raise ValueError(f"mask must be bool [{n_live}], got "
+                             f"{mask.dtype} {tuple(mask.shape)}")
+        if mask.device != corpus.device or not mask.is_contiguous():
+            raise ValueError("mask must be contiguous on the rows' device")
+
+
+def score_metric(corpus: torch.Tensor, queries: torch.Tensor, metric: str,
+                 n_live: int, n_out: int, mask: torch.Tensor | None = None,
+                 *, out: torch.Tensor | None = None,
+                 plan: DotPlan | None = None) -> torch.Tensor:
+    """`metric`'s float32 scores, higher is better: corpus float32[n, d],
+    queries float32[b, d] -> float32[b, n_out], n_out >= n, accumulated
+    in float32 (no TF32). Column j < n holds the dot (metric "dot"), the
+    cosine or the negated squared L2 distance of queries[i] and
+    corpus[j], in the reference's float order (`knn._epilogue`), for each
+    j < n_live that `mask` (bool [n_live], None: all) keeps; every other
+    column is -inf. `out`, if given, is a contiguous [b, n_out] float32
+    tensor written in place. On CUDA tensors the kernel runs once on
+    `score_dot_plan`'s route (or on `plan`, to time one route against the
+    other), summing the rows' norms from the values it loads and writing
+    each score once, and `score_metric.launches[metric]` counts the call;
+    on CPU tensors the plain version runs."""
+    _check_metric(corpus, queries, metric, n_live, n_out, mask, out)
+    if corpus.device.type == "cpu":
+        return _into(score_metric_reference(corpus, queries, metric, n_live,
+                                            n_out, mask), out)
+    n, d = corpus.shape
+    b = queries.shape[0]
+    if out is None:
+        out = torch.empty((b, n_out), dtype=torch.float32,
+                          device=corpus.device)
+    if b == 0 or n_out == 0:
+        return out
+    if n == 0 or d == 0:        # no product to sum: the plain version
+        return out.copy_(score_metric_reference(corpus, queries, metric,
+                                                n_live, n_out, mask))
+    if plan is None:
+        plan = score_dot_plan(b, d, math.gcd(corpus.data_ptr(), 16))
+    epi = EPILOGUES[metric]
+    part = None
+    if epi != EPILOGUES["dot"] and d > dot_segment(plan):
+        # the partial norms of a cut depth, two buffers taken in turn
+        part = torch.empty(2 * (b + n), dtype=torch.float32,
+                           device=corpus.device)
+    err = load_score_library().score_dot_launch(
+        corpus.data_ptr(), queries.data_ptr(), out.data_ptr(), n, b, d,
+        *plan, epi, n_live, n_out, None if mask is None else mask.data_ptr(),
+        None if part is None else part.data_ptr(),
+        torch.cuda.current_stream(corpus.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_dot kernel launch failed: CUDA error "
+                           f"{err} (n={n}, b={b}, d={d}, {plan}, {metric}, "
+                           f"n_live={n_live}, n_out={n_out})")
+    _count(score_metric, metric)
+    return out
+
+
 def score_dot(corpus: torch.Tensor, queries: torch.Tensor,
               out: torch.Tensor | None = None,
               plan: DotPlan | None = None) -> torch.Tensor:
     """float32 scores queries . corpus^T: corpus float32[n, d], queries
-    float32[b, d] -> float32[b, n], accumulated in float32 (no TF32).
-    `out`, if given, is a contiguous [b, n] float32 tensor written in
-    place. On CUDA tensors the kernel runs on `score_dot_plan`'s route
-    (or on `plan`, to time one route against the other) and
-    `score_dot.launches` counts the call; on CPU tensors the plain
-    version runs."""
+    float32[b, d] -> float32[b, n], `score_metric`'s "dot" with every
+    column live (counted in `score_metric.launches["dot"]`)."""
     _check_score("score_dot", corpus, queries, torch.float32, out)
-    if corpus.device.type == "cpu":
-        return _into(score_dot_reference(corpus, queries), out)
-    n, d = corpus.shape
-    b = queries.shape[0]
-    if out is None:
-        out = torch.empty((b, n), dtype=torch.float32, device=corpus.device)
-    if n == 0 or b == 0:
-        return out
-    if d == 0:
-        return out.zero_()
-    if plan is None:
-        plan = score_dot_plan(b, d, math.gcd(corpus.data_ptr(), 16))
-    err = load_score_library().score_dot_launch(
-        corpus.data_ptr(), queries.data_ptr(), out.data_ptr(), n, b, d,
-        *plan, torch.cuda.current_stream(corpus.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"score_dot kernel launch failed: CUDA error "
-                           f"{err} (n={n}, b={b}, d={d}, {plan})")
-    _count(score_dot)
-    return out
+    n = corpus.shape[0]
+    return score_metric(corpus, queries, "dot", n, n, out=out, plan=plan)
 
 
 def lists_meta(table: np.ndarray, qidx: np.ndarray | None,
@@ -919,7 +1040,7 @@ def score_int8_lists(codes: torch.Tensor, queries: torch.Tensor,
     return out
 
 
-score_dot.launches = 0
+score_metric.launches = dict.fromkeys(EPILOGUES, 0)
 score_int8.launches = 0
 
 
@@ -980,8 +1101,13 @@ bitmap_and.launches = 0
 
 
 def launch_counts() -> dict:
-    """Each wrapper's launches in this process so far, by its name
-    (`score_int8` counts `score_int8_lists` too): what a cluster alpha
-    reports in its `stats` op."""
-    return {f.__name__: f.launches for f in (
-        bucket_or, bucket_or_level, score_dot, score_int8, bitmap_and)}
+    """Each wrapper's launches in this process so far, by its name, an int
+    each (`score_int8` counts `score_int8_lists` too; `score_metric` one
+    name a metric, `score_metric.cosine` and so on, `score_dot`'s calls
+    under `score_metric.dot`): what a cluster alpha reports in its
+    `stats` op."""
+    counts = {f.__name__: f.launches for f in (
+        bucket_or, bucket_or_level, score_int8, bitmap_and)}
+    for metric, launches in score_metric.launches.items():
+        counts[f"score_metric.{metric}"] = launches
+    return counts

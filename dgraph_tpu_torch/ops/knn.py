@@ -5,12 +5,22 @@ Two tiers, as in the reference:
 - host: numpy exact top-k with float64 accumulation (`score_host`,
   `topk_host`), copied from the reference. It is the float64 oracle and
   the quantized tier's re-rank engine (`ops/ivf.py`).
-- device: the scores `queries . corpus^T` come from the hand-written
-  kernel `ops/kernels.score_dot` (`csrc/score.cu`); the cosine and
-  euclidean epilogues, the masking and the top-k are PyTorch, in the
-  reference's operation order. `topk_device` reduces either exactly or
-  with the two-stage bucketed approximate top-k (TPU-KNN's partial
-  reduce, then an exact top-k over the bucket winners).
+- device: the metric's scores come from one launch of the hand-written
+  kernel `ops/kernels.score_metric` (`csrc/score.cu`, `score_dot`'s
+  kernel): its store writes the cosine or euclidean score in the
+  reference's operation order (`_epilogue`, the plain version, is what
+  runs on the CPU), from the rows' squared norms the kernel sums from
+  the values it already loads, and -inf in the padding and masked
+  columns. It adds no byte and one pass of arithmetic a score to the
+  dot's, so the dot's bound (float32 operations at a large batch, bytes
+  at a few queries) stands. The norms are summed in the kernel's order,
+  not `torch.sum`'s, so a score may differ from the plain one by a few
+  ulp, as the dot already does; where the depth is cut into segments
+  the partial norms pass from segment to segment like the dots, and
+  only the last stores the scores. The top-k is PyTorch. `topk_device`
+  reduces either exactly or with the two-stage bucketed approximate
+  top-k (TPU-KNN's partial reduce, then an exact top-k over the bucket
+  winners).
 
 Scores are "higher is better" for every metric: dot is the raw inner
 product, cosine normalises both sides, euclidean is the negated squared
@@ -35,7 +45,7 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch import backend
-from dgraph_tpu_torch.ops.kernels import score_dot
+from dgraph_tpu_torch.ops.kernels import score_metric
 from dgraph_tpu_torch.utils.tracing import stage
 
 METRICS = ("cosine", "dot", "euclidean")
@@ -172,15 +182,17 @@ def _topk_ordered(x: torch.Tensor, k: int
 
 def _score_device(corpus: torch.Tensor, queries: torch.Tensor,
                   metric: str) -> torch.Tensor:
-    """(b, n) float32 scores of `metric`: the dots from the kernel, then
-    the reference's epilogue in the same operation order."""
-    return _epilogue(score_dot(corpus, queries), corpus, queries, metric)
+    """(b, n) float32 scores of `metric`, one launch of the kernel that
+    stores the metric's score (`score_metric`)."""
+    n = corpus.shape[0]
+    return score_metric(corpus, queries, metric, n, n)
 
 
 def _epilogue(dots: torch.Tensor, corpus: torch.Tensor,
               queries: torch.Tensor, metric: str) -> torch.Tensor:
     """`metric`'s scores from the (b, n) dots, in the reference's
-    operation order."""
+    operation order: the plain version of the kernel's store, which
+    `score_metric` runs on CPU tensors."""
     if metric == "dot":
         return dots
     if metric == "cosine":
@@ -305,6 +317,8 @@ def topk_device(corpus_dev, queries: np.ndarray, k: int,
             n = n_rows if n_real is None else int(n_real)
             q = torch.from_numpy(np.ascontiguousarray(
                 np.atleast_2d(np.asarray(queries, np.float32)))).to(dev)
+            keep = None if mask is None else torch.from_numpy(
+                np.ascontiguousarray(mask, bool)).to(dev)
         n_pad = max(BUCKET_SIZE,
                     ((n_rows + BUCKET_SIZE - 1) // BUCKET_SIZE) * BUCKET_SIZE)
         plan = plan_two_stage(n, k)
@@ -316,19 +330,11 @@ def topk_device(corpus_dev, queries: np.ndarray, k: int,
             l_per_bucket = max(plan, 1)
 
         with stage("knn.score"):
-            dots = score_dot(corpus_t, q)
+            # the metric's scores, -inf in the padding columns, past n and
+            # where the mask is False, in one launch
+            scores = score_metric(corpus_t, q, metric, n, n_pad, keep)
         with stage("knn.epilogue"):
-            scores = _epilogue(dots, corpus_t, q, metric)
-            if n_pad != n_rows:
-                scores = torch.nn.functional.pad(
-                    scores, (0, n_pad - n_rows), value=-math.inf)
-            invalid = torch.arange(n_pad, device=dev) >= n
-            if mask is not None:
-                m = np.zeros(n_pad, bool)
-                m[:n] = np.asarray(mask, bool)
-                invalid |= ~torch.from_numpy(m).to(dev)
-            # in place: the scores are this call's own tensor
-            scores.masked_fill_(invalid[None, :], -math.inf)
+            pass        # in the score launch; the stage keeps its name
         with stage("knn.select"):
             if two_stage:
                 vals, idx = _two_stage_topk_dev(scores, int(k),

@@ -139,11 +139,11 @@ def test_sharded_topk_launches_score_dot_once_a_shard(monkeypatch):
     _, tm = meshes(AXES["uid8"])
     calls = []
 
-    def counted(c, qq, out=None):
+    def counted(c, qq, metric, n_live, n_out, mask=None):
         calls.append(tuple(c.shape))
-        return kernels.score_dot(c, qq, out)
+        return kernels.score_metric(c, qq, metric, n_live, n_out, mask)
 
-    monkeypatch.setattr(tknn, "score_dot", counted)
+    monkeypatch.setattr(tknn, "score_metric", counted)
     block, n_real = tdk.shard_corpus(tm, corpus)
     tdk.sharded_topk(tm, block, q, 6, "cosine", n_real=n_real)
     assert calls == [(512, 32)] * 8

@@ -6,6 +6,7 @@ The CUDA kernel itself runs only on the card; chip_smoke.py holds it
 against the plain version there.
 """
 
+import math
 import re
 
 import numpy as np
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 from dgraph_tpu.ops.bitgraph import _gather_or
 from dgraph_tpu.ops.pallas_kernels import bucket_or_pallas
 from dgraph_tpu_torch.ops import _build, kernels
+from dgraph_tpu_torch.ops import knn as tknn
 
 
 def frontier(n, width, seed):
@@ -734,9 +736,9 @@ def test_score_wrapper_on_cpu_runs_plain_version_without_launch(name, n, b,
     q = torch.from_numpy(rng.standard_normal((b, d), np.float32))
     wrapper = getattr(kernels, name)
     plain = getattr(kernels, f"{name}_reference")
-    before = wrapper.launches
+    before = kernels.launch_counts()
     got = wrapper(rows, q)
-    assert wrapper.launches == before
+    assert kernels.launch_counts() == before
     assert got.dtype == torch.float32 and tuple(got.shape) == (b, n)
     assert torch.equal(got, plain(rows, q))
     # out=: a [b, n] view of a flat buffer, neighbours kept
@@ -785,6 +787,74 @@ def test_score_wrapper_rejects(name, case):
         getattr(kernels, name)(rows, q, out=out)
 
 
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot"])
+def test_score_metric_on_cpu_runs_plain_version_without_launch(metric):
+    """On CPU tensors score_metric runs its plain version and counts no
+    launch: the plain dots and `knn._epilogue`, each live column the mask
+    keeps holding its score and every other column -inf, as the device
+    top-k composed them before the kernel's store took them."""
+    rng = np.random.default_rng(24)
+    n, b, d, n_live, n_out = 130, 3, 7, 120, 256
+    rows = torch.from_numpy(rng.standard_normal((n, d), np.float32))
+    rows[5] = 0
+    q = torch.from_numpy(rng.standard_normal((b, d), np.float32))
+    keep = torch.from_numpy(rng.random(n_live) > 0.3)
+    scores = tknn._epilogue(kernels.score_dot_reference(rows, q), rows, q,
+                            metric)
+    before = kernels.launch_counts()
+    for mask in (None, keep):
+        got = kernels.score_metric(rows, q, metric, n_live, n_out, mask)
+        live = torch.arange(n_live) if mask is None else \
+            torch.nonzero(mask)[:, 0]
+        want = torch.full((b, n_out), -math.inf)
+        want[:, live] = scores[:, live]
+        assert torch.equal(got, want)
+        assert torch.equal(got, kernels.score_metric_reference(
+            rows, q, metric, n_live, n_out, mask))
+        # out=: a [b, n_out] view of a flat buffer, neighbours kept
+        big = torch.full((b * n_out + 2,), 7.0)
+        res = kernels.score_metric(rows, q, metric, n_live, n_out, mask,
+                                   out=big[1:-1].view(b, n_out))
+        assert res.data_ptr() == big[1:].data_ptr()
+        assert torch.equal(res, got)
+        assert float(big[0]) == 7.0 and float(big[-1]) == 7.0
+    assert kernels.launch_counts() == before
+    # flat, an int a name: the stats op's kernelLaunches, one a metric
+    assert {k for k in before if k.startswith("score_metric.")} == {
+        "score_metric.cosine", "score_metric.dot", "score_metric.euclidean"}
+    assert all(type(v) is int for v in before.values())
+
+
+@pytest.mark.parametrize("case", [
+    "dtype", "shape", "device", "metric", "mask_length", "mask_dtype",
+    "n_live", "n_out"])
+def test_score_metric_rejects(case):
+    rows = torch.zeros((10, 4))
+    q = torch.zeros((3, 4))
+    metric, n_live, n_out, mask = "cosine", 10, 16, None
+    if case == "dtype":
+        q = q.to(torch.float64)
+    elif case == "shape":
+        q = torch.zeros((3, 5))
+    elif case == "device":
+        rows, q = rows.to("meta"), q.to("meta")
+    elif case == "metric":
+        metric = "manhattan"
+    elif case == "mask_length":
+        mask = torch.ones(9, dtype=torch.bool)
+    elif case == "mask_dtype":
+        mask = torch.ones(10, dtype=torch.uint8)
+    elif case == "n_live":                 # past the rows and n_out
+        n_live = 17
+    elif case == "n_out":                  # fewer columns than rows,
+        n_out = 9                          # and out= narrower than n_out
+        out = torch.zeros((3, 15))
+        with pytest.raises(ValueError):
+            kernels.score_metric(rows, q, metric, n_live, 16, mask, out=out)
+    with pytest.raises((TypeError, ValueError)):
+        kernels.score_metric(rows, q, metric, n_live, n_out, mask)
+
+
 def test_score_source_builds_beside_bucket_or():
     """csrc/score.cu holds the dense float32 product (two routes, the
     tile and the row kernel, behind one C entry point) and the int8
@@ -801,6 +871,13 @@ def test_score_source_builds_beside_bucket_or():
     assert "__fmul_rn" in src and "__fadd_rn" in src
     assert "cp.async" in src
     assert "score_dot_kernel(" in src and "score_dot_rows_kernel(" in src
+    # the store's epilogues and the tile route's depth segment, as the
+    # wrapper passes and cuts them
+    epi = ", ".join(f"EPI_{m.upper()} = {v}" for m, v in
+                    sorted(kernels.EPILOGUES.items(), key=lambda e: e[1]))
+    assert f"constexpr int {epi};" in src
+    assert f"static_assert(C::DSEG == {kernels.DOT_TILE_DSEG}," in src
+    assert "__fmaf_rn" in src and "__fdiv_rn" in src and "__fsqrt_rn" in src
 
 
 # -- score_dot's routes: the plan and the row route's walk -------------------
@@ -818,7 +895,8 @@ def test_row_tiles_match_the_source():
     assert kernels.DOT_ROW_QFLOATS == 8192
     assert sorted(kernels.DOT_ROW_LANES) == sorted(ROW_R)
     for q_tile in ROW_R:
-        assert f"case {q_tile}: return launch_rows<{q_tile}, VEC>" in src
+        assert f"case {q_tile}: return launch_rows<{q_tile}, VEC, NORMS>" \
+            in src
 
 
 @pytest.mark.parametrize("d", [16, 37, 100, 128, 1024])
@@ -851,27 +929,30 @@ def test_score_dot_plan_rejects():
             kernels.score_dot_plan(*args)
 
 
-def row_route_cover(plan, n, b, d):
+def row_route_cover(plan, n, b, d, n_out=None):
     """score_dot_rows_kernel's walk over a call, written out from the CUDA
     source: (how often each (query, row, depth) product is summed into a
-    lane's partial sum, how often each score is stored, how often a
-    store adds to the output). The grid-stride loop hands every unit to
-    one warp whatever the grid, so the walk takes the units in turn."""
+    lane's partial sum, how often each of the n_out (default n) scores is
+    stored, how often a store adds to the output). The grid-stride loop
+    hands every unit to one warp whatever the grid, so the walk takes the
+    units in turn; units cover the n_out columns, rows past n load
+    zeros."""
+    n_out = n if n_out is None else n_out
     r_rows, w = ROW_R[plan.q_tile], plan.vec
     groups = 32 // plan.lanes
     unit = groups * r_rows
     span = plan.lanes * w
     dseg = kernels.DOT_ROW_QFLOATS // plan.q_tile
     summed = np.zeros((b, n, d), np.int64)
-    stored = np.zeros((b, n), np.int64)
-    added = np.zeros((b, n), np.int64)
+    stored = np.zeros((b, n_out), np.int64)
+    added = np.zeros((b, n_out), np.int64)
     lane = np.arange(32)
     sub, grp = lane % plan.lanes, lane // plan.lanes
     for q0 in range(0, b, plan.q_tile):
         bq = min(plan.q_tile, b - q0)
         for k0 in range(0, d, dseg):
             ds = min(dseg, d - k0)
-            for u in range(-(-n // unit)):
+            for u in range(-(-n_out // unit)):
                 for t in range(-(-ds // span)):
                     k = sub * w + t * span
                     for r in range(r_rows):
@@ -883,7 +964,7 @@ def row_route_cover(plan, n, b, d):
                     for j in range(bq):
                         mine = (sub == (r * plan.q_tile + j) % plan.lanes)
                         row = (u * unit + grp + r * groups)[mine]
-                        row = row[row < n]
+                        row = row[row < n_out]
                         stored[q0 + j, row] += 1
                         added[q0 + j, row] += k0 > 0
     return summed, stored, added
@@ -895,14 +976,18 @@ def row_route_cover(plan, n, b, d):
 def test_row_route_sums_every_product_once(n, b, d, align):
     """Every product of the row route's plan summed exactly once, every
     score stored once a depth segment, the later segments adding: the
-    kernel's sum is the plain version's products in another order."""
+    kernel's sum is the plain version's products in another order. So
+    too with the output wider than the corpus (score_metric's padding
+    columns, which are stored but sum no product)."""
     plan = kernels.score_dot_plan(b, d, align)
     assert plan.route == kernels.DOT_ROWS
-    summed, stored, added = row_route_cover(plan, n, b, d)
-    segments = -(-d // (kernels.DOT_ROW_QFLOATS // plan.q_tile))
-    assert (summed == 1).all()
-    assert (stored == segments).all()
-    assert (added == segments - 1).all()
+    segments = -(-d // kernels.dot_segment(plan))
+    assert segments == -(-d // (kernels.DOT_ROW_QFLOATS // plan.q_tile))
+    for n_out in (n, n + 70):
+        summed, stored, added = row_route_cover(plan, n, b, d, n_out)
+        assert (summed == 1).all()
+        assert (stored == segments).all()
+        assert (added == segments - 1).all()
 
 
 @pytest.mark.parametrize("b", [1, 2, CROSS, CROSS + 1])
@@ -920,9 +1005,9 @@ def test_score_dot_reference_matches_pallas_interpret_by_route(b):
     assert plan.route == (kernels.DOT_ROWS if b <= CROSS
                           else kernels.DOT_TILE)
     ct, qt = torch.from_numpy(corpus), torch.from_numpy(q)
-    before = kernels.score_dot.launches
+    before = kernels.launch_counts()
     got = kernels.score_dot(ct, qt, plan=plan)
-    assert kernels.score_dot.launches == before
+    assert kernels.launch_counts() == before
     assert torch.equal(got, kernels.score_dot_reference(ct, qt))
     want = np.asarray(score_dot_pallas(jnp.asarray(corpus), jnp.asarray(q),
                                        interpret=True))
